@@ -1,0 +1,40 @@
+"""Top-level instance table: world transforms + world AABBs.
+
+Torch port of raytracedggx_tpu/bvh/tlas.py (RayTracer::
+UpdateAccelerationStructure, RayTracer.cpp:326-341).  The reference reads
+each mesh's root box from its LBVH (``aabb_min[0]``); that box is the
+union of the mesh's triangle bounds, so the port takes it from
+``trace.geometry.mesh_bounds`` and needs no LBVH.  The inverse worlds
+that shading reads travel in the frame constants.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class TLAS(NamedTuple):
+    worlds: torch.Tensor        # (I, 4, 4) row-vector world matrices
+    aabb_min: torch.Tensor      # (I, 3) world-space instance bounds
+    aabb_max: torch.Tensor      # (I, 3)
+    mesh_ids: tuple             # instance -> mesh index
+
+
+def _corners(lo, hi):
+    """(..., 8, 3) box corners, x fastest (bit 0 = x, 1 = y, 2 = z)."""
+    c = torch.arange(8, device=lo.device)
+    sel = torch.stack([(c >> k) & 1 for k in range(3)], dim=-1).bool()
+    return torch.where(sel, hi[..., None, :], lo[..., None, :])
+
+
+def build_tlas(mesh_bounds, worlds, mesh_ids) -> TLAS:
+    """mesh_bounds: per mesh (lo (3,), hi (3,)) object-space root boxes;
+    worlds (I, 4, 4); mesh_ids: instance -> mesh."""
+    lo = torch.stack([mesh_bounds[m][0] for m in mesh_ids])
+    hi = torch.stack([mesh_bounds[m][1] for m in mesh_ids])
+    wc = (torch.einsum("icd,ide->ice", _corners(lo, hi), worlds[:, :3, :3])
+          + worlds[:, None, 3, :3])
+    return TLAS(worlds=worlds, aabb_min=wc.amin(dim=1), aabb_max=wc.amax(dim=1),
+                mesh_ids=tuple(mesh_ids))

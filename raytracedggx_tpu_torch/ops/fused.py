@@ -1,0 +1,260 @@
+"""Instanced closest-hit traversal: kernel K1 and its plain twin.
+
+Torch/CUDA port of raytracedggx_tpu/ops/fused.py (lean layout).  The host
+function ``build_records4_padded`` is copied unchanged (numpy).  The TPU
+kernel ``_instanced_kernel`` becomes the CUDA kernel in
+``csrc/traverse.cu``, launched by ``trace_tiles_instanced``: one ray per
+thread with its own stack, in place of 1024-ray packets sharing one SMEM
+stack.  ``trace_instanced_plain`` is the plain torch version of the same
+contract — brute-force Moller-Trumbore over every (instance, stream slot)
+pair — used for tensors on the CPU and as the kernel's oracle.
+
+Layout (see ops/scene_wide.py): nodes (N, 36) f32 rows, tris (S, 9) f32
+stream slots (leaf j = slots [j*L, (j+1)*L), padding v0 = NaN),
+inv_mats (1 + I, 12) inverse worlds with row 0 the identity.
+Outputs (t, u, v, slot, inst): t is t_max and u, v are 0 on a miss;
+slot = leaf*L + k and inst are int32, -1 on a miss.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .cuda_lib import check_launch, load_library, stream_handle
+
+
+def build_records4_padded(bvh, leaf_size: int = 8, compact: bool = True):
+    """Collapse a binary LBVH into 4-wide supernodes with every leaf
+    padded to exactly `leaf_size` stream slots (pad slot = -1).  Returns
+    (records, tri_stream): records[i] = child dicts {kind, a, b} where a
+    is a LEAF ORDINAL for kind=1 (not a stream position) and a supernode
+    index for kind=2; b = real triangle count.  Leaf ordinal j covers
+    stream slots [j*L, (j+1)*L).  Mirrors ops/wide.build_records4 but
+    with the fixed-size-leaf invariant the fused kernel needs.
+
+    compact=True is the TPU analog of the reference's acceleration-
+    structure compaction flow (build -> COMPACTED_SIZE query -> pack ->
+    copy, RayTracer.cpp:163-212 / XUSGRayTracing.h:51-66): sibling leaf
+    children whose triangle counts bin-pack into one leaf_size slot are
+    merged (box = union), shrinking the padded stream and the per-tile
+    leaf-visit count.  compaction_stats() is the size-query analog."""
+    left = np.asarray(bvh.left)
+    right = np.asarray(bvh.right)
+    amin = np.asarray(bvh.aabb_min)
+    amax = np.asarray(bvh.aabb_max)
+    leaf_tri = np.asarray(bvh.leaf_tri)
+    n = len(leaf_tri)
+    n_int = n - 1
+    L = leaf_size
+
+    counts = np.ones(2 * n - 1, np.int64)
+    for _ in range(4096):      # fixed point after `depth` rounds
+        new = counts[left] + counts[right]
+        if np.array_equal(new, counts[:n_int]):
+            break
+        counts[:n_int] = new
+    else:
+        raise ValueError("BVH deeper than 4096 — malformed tree?")
+
+    def leaves_of(node):
+        out = []
+        stack = [node]
+        while stack:
+            v = stack.pop()
+            if v >= n_int:
+                out.append(leaf_tri[v - n_int])
+            else:
+                stack.append(right[v])
+                stack.append(left[v])
+        return out
+
+    def expand4(node):
+        kids = [left[node], right[node]]
+        while len(kids) < 4:
+            best, best_c = -1, L
+            for i, k in enumerate(kids):
+                if k < n_int and counts[k] > best_c:
+                    best, best_c = i, counts[k]
+            if best < 0:
+                break
+            k = kids.pop(best)
+            kids[best:best] = [left[k], right[k]]
+        return kids
+
+    records = []
+    tri_stream = []
+
+    def emit_leaf(tris):
+        j = len(tri_stream) // L
+        tri_stream.extend(tris)
+        tri_stream.extend([-1] * (L - len(tris)))
+        return j
+
+    def emit(node):
+        idx = len(records)
+        records.append(None)
+        childs = []
+        leafs = []
+        for k in expand4(node):
+            if k >= n_int or counts[k] <= L:
+                leafs.append(k)
+            else:
+                childs.append(dict(kind=2, a=None, b=0, node=k,
+                                   lo=amin[k], hi=amax[k]))
+        if compact and len(leafs) > 1:
+            # pack -> copy: greedy first-fit-decreasing bin pack of
+            # sibling leaves into leaf_size-slot bins
+            leafs.sort(key=lambda k: -counts[k] if k < n_int else -1)
+            bins = []                 # [(count, [subtree...])]
+            for k in leafs:
+                c = counts[k] if k < n_int else 1
+                for b in bins:
+                    if b[0] + c <= L:
+                        b[0] += c
+                        b[1].append(k)
+                        break
+                else:
+                    bins.append([c, [k]])
+            for _cnt, ks in bins:
+                tris = [t for k in ks for t in leaves_of(k)]
+                lo = np.min([amin[k] for k in ks], axis=0)
+                hi = np.max([amax[k] for k in ks], axis=0)
+                childs.append(dict(kind=1, a=emit_leaf(tris),
+                                   b=len(tris), lo=lo, hi=hi))
+        else:
+            for k in leafs:
+                tris = leaves_of(k)
+                childs.append(dict(kind=1, a=emit_leaf(tris),
+                                   b=len(tris), lo=amin[k], hi=amax[k]))
+        records[idx] = childs
+        for c in childs:
+            if c["kind"] == 2:
+                c["a"] = emit(c["node"])
+        return idx
+
+    import sys
+    old = sys.getrecursionlimit()
+    sys.setrecursionlimit(10 ** 5)
+    try:
+        if n == 1 or counts[0] <= L:
+            root = 0 if n > 1 else n_int
+            tris = leaves_of(root)
+            records.append([dict(kind=1, a=emit_leaf(tris), b=len(tris),
+                                 lo=amin[root], hi=amax[root])])
+        else:
+            emit(0)
+    finally:
+        sys.setrecursionlimit(old)
+    return records, tri_stream
+
+
+def _per_ray(t_max, like):
+    """t_max as a contiguous (R,) float32 tensor on the rays' device."""
+    return torch.as_tensor(t_max, dtype=torch.float32,
+                           device=like.device).expand(like.shape[0]
+                                                      ).contiguous()
+
+
+def trace_instanced_plain(tris, inv_mats, inst_slots, ray_o, ray_d, t_min,
+                          t_max):
+    """Plain torch K1: brute-force Moller-Trumbore over every (instance,
+    stream slot) pair, chunked over rays.  Same outputs as the kernel;
+    ties go to the lowest (inst, slot).  inst_slots[i]: int64 stream
+    slots of instance i's mesh."""
+    dev = ray_o.device
+    R = ray_o.shape[0]
+    t_max = _per_ray(t_max, ray_o)
+    best_t = t_max.clone()
+    best_u = torch.zeros(R, device=dev)
+    best_v = torch.zeros(R, device=dev)
+    best_slot = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    best_inst = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    inf = torch.tensor(float("inf"), device=dev)
+    for i, slots in enumerate(inst_slots):
+        m = inv_mats[i + 1]
+        # same order of operations as the kernel's object-space transform
+        o = (ray_o[:, 0:1] * m[0:3] + ray_o[:, 1:2] * m[3:6]
+             + ray_o[:, 2:3] * m[6:9] + m[9:12])
+        d = ray_d[:, 0:1] * m[0:3] + ray_d[:, 1:2] * m[3:6] \
+            + ray_d[:, 2:3] * m[6:9]
+        geo = tris[slots]
+        v0, e1, e2 = geo[:, 0:3], geo[:, 3:6], geo[:, 6:9]
+        n_s = slots.shape[0]
+        lane = torch.arange(n_s, device=dev)
+        chunk = max(1, (1 << 22) // max(n_s, 1))
+        for r0 in range(0, R, chunk):
+            sl = slice(r0, min(R, r0 + chunk))
+            oo, dd = o[sl, None, :], d[sl, None, :]
+            pv = torch.linalg.cross(dd.expand(-1, n_s, -1),
+                                    e2.expand(oo.shape[0], -1, -1))
+            inv_det = 1.0 / (e1 * pv).sum(-1)
+            tv = oo - v0
+            u = (tv * pv).sum(-1) * inv_det
+            qv = torch.linalg.cross(tv, e1.expand_as(tv))
+            v = (dd * qv).sum(-1) * inv_det
+            t = (e2 * qv).sum(-1) * inv_det
+            ok = ((u >= 0) & (v >= 0) & (u + v <= 1) & (t >= t_min)
+                  & (t <= t_max[sl, None]))
+            tt = torch.where(ok, t, inf)
+            tb = tt.amin(dim=1)
+            k = torch.where(ok & (tt == tb[:, None]), lane, n_s).amin(dim=1)
+            found = k < n_s
+            kc = torch.clamp(k, max=n_s - 1)[:, None]
+            upd = found & ((best_slot[sl] < 0) | (tb < best_t[sl]))
+            best_t[sl] = torch.where(upd, tb, best_t[sl])
+            best_u[sl] = torch.where(upd, u.gather(1, kc)[:, 0], best_u[sl])
+            best_v[sl] = torch.where(upd, v.gather(1, kc)[:, 0], best_v[sl])
+            best_slot[sl] = torch.where(upd, slots[kc[:, 0]].to(torch.int32),
+                                        best_slot[sl])
+            best_inst[sl] = torch.where(upd, i, best_inst[sl])
+    return best_t, best_u, best_v, best_slot, best_inst
+
+
+def _require(name, t, shape, dtype, device):
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
+                         f"{device}, got {t.dtype} on {t.device}")
+    if len(shape) != t.dim() or any(s is not None and s != n
+                                   for s, n in zip(shape, t.shape)):
+        raise ValueError(f"{name}: need shape {shape}, got "
+                         f"{tuple(t.shape)}")
+
+
+def trace_tiles_instanced(nodes, tris, inv_mats, inst_slots, ray_o, ray_d,
+                          t_min, t_max, leaf_size: int, stack: int):
+    """K1 wrapper: closest hit of (R, 3) WORLD-space rays over the
+    instanced scene BVH.  CUDA tensors launch the kernel (or raise);
+    CPU tensors take ``trace_instanced_plain``."""
+    t_max = _per_ray(t_max, ray_o)
+    if ray_o.device.type == "cpu":
+        return trace_instanced_plain(tris, inv_mats, inst_slots, ray_o,
+                                     ray_d, t_min, t_max)
+    dev, f32 = ray_o.device, torch.float32
+    R = ray_o.shape[0]
+    _require("nodes", nodes, (None, 36), f32, dev)
+    _require("tris", tris, (None, 9), f32, dev)
+    _require("inv_mats", inv_mats, (None, 12), f32, dev)
+    _require("ray_o", ray_o, (R, 3), f32, dev)
+    _require("ray_d", ray_d, (R, 3), f32, dev)
+    lib = load_library()
+    if stack > lib.rtggx_k1_max_stack():
+        raise ValueError(f"stack {stack} exceeds the kernel's "
+                         f"{lib.rtggx_k1_max_stack()}")
+    out_t = torch.empty(R, dtype=f32, device=dev)
+    out_u = torch.empty(R, dtype=f32, device=dev)
+    out_v = torch.empty(R, dtype=f32, device=dev)
+    out_slot = torch.empty(R, dtype=torch.int32, device=dev)
+    out_inst = torch.empty(R, dtype=torch.int32, device=dev)
+    err = lib.rtggx_trace_instanced(
+        nodes.data_ptr(), tris.data_ptr(), inv_mats.data_ptr(),
+        ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(), float(t_min),
+        R, int(leaf_size), int(stack), out_t.data_ptr(), out_u.data_ptr(),
+        out_v.data_ptr(), out_slot.data_ptr(), out_inst.data_ptr(),
+        stream_handle(dev))
+    check_launch(err, "K1 trace_tiles_instanced")
+    trace_tiles_instanced.launches += 1
+    return out_t, out_u, out_v, out_slot, out_inst
+
+
+trace_tiles_instanced.launches = 0

@@ -1,0 +1,310 @@
+"""Unified instanced scene BVH: build, per-frame refit and the fused
+closest-hit wrapper.
+
+Torch port of raytracedggx_tpu/ops/scene_wide.py, lean layout only (the
+``slim``, fat and ``anchor_*`` paths wait).  A small top tree over
+INSTANCE world boxes enters shared per-MESH object-space subtrees through
+tagged instance nodes (kind 3); the traversal kernel (K1, ops/fused.py)
+transforms each ray by the tag's inverse world on a tag change.
+
+Re-laid out for the GPU: the reference's lane-tiled (Nt, 36, 128) node
+columns become (N, 36) rows, and its (Lt, 9L, 128) leaf columns become
+(S, 9) stream-slot rows (slot = leaf * L + k).  ``from_reference_arrays``
+converts the reference's arrays, so both sides can trace one BVH.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..bvh.sah import build_sah
+from .fused import (build_records4_padded, trace_instanced_plain,
+                    trace_tiles_instanced)
+
+TAG_SHIFT = 20                      # stack entry = node | (tag << 20)
+MAX_NODES = 1 << TAG_SHIFT
+BIG = 3e38
+
+
+class HitRecord(NamedTuple):
+    t: torch.Tensor        # (R,) float32 (t_max where missed)
+    prim: torch.Tensor     # (R,) int64 mesh-local triangle id (-1 = miss)
+    u: torch.Tensor        # (R,) float32 barycentric of vertex 1
+    v: torch.Tensor        # (R,) float32 barycentric of vertex 2
+    hit: torch.Tensor      # (R,) bool
+    inst: torch.Tensor     # (R,) int64 instance id (-1 = miss)
+
+
+class SceneWideBVH(NamedTuple):
+    nodes: torch.Tensor         # (N, 36) f32: boxes 24 | kind 4 | a 4 | b 4
+    tris: torch.Tensor          # (S, 9) f32 static object-space slots
+    inv_mats: torch.Tensor      # (1 + I, 12) f32 inverse worlds (refit)
+    attrs: torch.Tensor         # (S, 10) f32: n0 n1 n2 | prim per slot
+    static_cols: torch.Tensor   # (N, 12) f32 kind | a | b
+    mesh_boxes: torch.Tensor    # (N - n_top, 24) f32 object-space boxes
+    root_corners: torch.Tensor  # (I, 8, 3) mesh-root object box corners
+    inst_slots: tuple           # per instance: (S_i,) int64 stream slots
+    top_children: tuple         # per top node: (kind, a, b) per child
+    n_top: int
+    num_nodes: int
+    leaf_size: int
+    stack: int
+
+
+def _instance_tree(num_inst: int):
+    """4-ary grouping of instance indices into top-level records
+    (preorder; children have larger indices than their parents)."""
+    if num_inst <= 4:
+        return [[("inst", i) for i in range(num_inst)]]
+    level = [("inst", i) for i in range(num_inst)]
+    while len(level) > 4:
+        level = [("group", level[i:i + 4]) for i in range(0, len(level), 4)]
+    records = []
+
+    def emit(children):
+        idx = len(records)
+        records.append(None)
+        records[idx] = [("inst", c[1]) if c[0] == "inst" else ("node", None)
+                        for c in children]
+        for k, c in enumerate(children):
+            if c[0] != "inst":
+                records[idx][k] = ("node", emit(c[1]))
+        return idx
+
+    emit(level)
+    return records
+
+
+def _derived(kind, a_col, b_col, boxes, n_top, num_inst, L):
+    """(root_corners (I, 8, 3), inst_slots) from the node table: each
+    instance's mesh-root box corners and the stream slots of every leaf
+    under its kind-3 entry."""
+    corners = np.zeros((num_inst, 8, 3), np.float32)
+    slots = [None] * num_inst
+    for r in range(n_top):
+        for k in range(4):
+            if kind[r, k] != 3:
+                continue
+            inst, root = int(b_col[r, k]) - 1, int(a_col[r, k])
+            live = kind[root] > 0
+            ch = boxes[root].reshape(4, 6)[live]
+            lo, hi = ch[:, 0:3].min(axis=0), ch[:, 3:6].max(axis=0)
+            for c in range(8):
+                corners[inst, c] = [hi[0] if c & 1 else lo[0],
+                                    hi[1] if c & 2 else lo[1],
+                                    hi[2] if c & 4 else lo[2]]
+            leaves, todo = [], [root]
+            while todo:
+                n = todo.pop()
+                for kk in range(4):
+                    if kind[n, kk] == 1:
+                        leaves.append(int(a_col[n, kk]))
+                    elif kind[n, kk] == 2:
+                        todo.append(int(a_col[n, kk]))
+            leaves = np.sort(np.asarray(leaves, np.int64))
+            slots[inst] = (leaves[:, None] * L + np.arange(L)).reshape(-1)
+    return corners, slots
+
+
+def _assemble(tris, attrs, kind, a_col, b_col, boxes, n_top, top_children,
+              num_inst, L, stack, worlds, device) -> SceneWideBVH:
+    corners, slots = _derived(kind, a_col, b_col, boxes, n_top, num_inst, L)
+    static_cols = np.concatenate([kind, a_col, b_col], axis=1)
+
+    def dev(x, dtype=torch.float32):
+        return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
+                               device=device)
+
+    sw = SceneWideBVH(
+        nodes=None, tris=dev(tris), inv_mats=None, attrs=dev(attrs),
+        static_cols=dev(static_cols), mesh_boxes=dev(boxes[n_top:]),
+        root_corners=dev(corners),
+        inst_slots=tuple(dev(s, torch.int64) for s in slots),
+        top_children=tuple(top_children), n_top=int(n_top),
+        num_nodes=int(kind.shape[0]), leaf_size=int(L), stack=int(stack))
+    if worlds is None:
+        worlds = torch.eye(4, device=device).expand(num_inst, 4, 4)
+    return refit_scene_wide(sw, worlds)
+
+
+def build_scene_wide(geom, mesh_ids, leaf_size: int = 16, worlds=None,
+                     device=None) -> SceneWideBVH:
+    """geom: trace.geometry.SceneGeometry; mesh_ids: instance -> mesh.
+    Host build of all topology and object-space geometry (binned-SAH
+    subtrees, 4-wide collapse with padded L-slot leaves), then a refit at
+    ``worlds`` (identity by default)."""
+    L = leaf_size
+    num_inst = len(mesh_ids)
+    assert num_inst < (1 << 11), "instance tag field is 11 bits"
+    mesh_set = sorted(set(mesh_ids))
+    host = {m: {k: getattr(geom.meshes[m], k).cpu().numpy()
+                for k in ("positions", "normals", "tri", "v0", "e1", "e2")}
+            for m in mesh_set}
+    mesh_recs = {m: build_records4_padded(
+        build_sah(host[m]["positions"], host[m]["tri"], chain_cutoff=L), L)
+        for m in mesh_set}
+
+    top_records = _instance_tree(num_inst)
+    n_top = len(top_records)
+    node_off, leaf_off = {}, {}
+    n_nodes, n_leaves = n_top, 0
+    for m in mesh_set:
+        recs, stream = mesh_recs[m]
+        node_off[m], leaf_off[m] = n_nodes, n_leaves
+        n_nodes += len(recs)
+        n_leaves += len(stream) // L
+    N = n_nodes
+    assert N < MAX_NODES
+
+    kind = np.zeros((N, 4), np.int32)
+    a_col = np.zeros((N, 4), np.int32)
+    b_col = np.zeros((N, 4), np.int32)
+    boxes = np.zeros((N, 24), np.float32)
+    for k in range(4):                   # empty children never intersect
+        boxes[:, k * 6:k * 6 + 3] = BIG
+        boxes[:, k * 6 + 3:k * 6 + 6] = -BIG
+
+    top_children = []
+    for r, rec in enumerate(top_records):
+        childs = []
+        for k, c in enumerate(rec):
+            if c[0] == "inst":
+                i = c[1]
+                kind[r, k], a_col[r, k], b_col[r, k] = (
+                    3, node_off[mesh_ids[i]], i + 1)
+                childs.append((3, i, i + 1))
+            else:
+                kind[r, k], a_col[r, k] = 2, c[1]
+                childs.append((2, c[1], 0))
+        top_children.append(tuple(childs))
+
+    for m in mesh_set:
+        recs, _ = mesh_recs[m]
+        off, loff = node_off[m], leaf_off[m]
+        for r, rec in enumerate(recs):
+            for k, c in enumerate(rec):
+                kind[off + r, k] = c["kind"]
+                a_col[off + r, k] = (loff + c["a"] if c["kind"] == 1
+                                     else off + c["a"])
+                b_col[off + r, k] = c["b"]
+                boxes[off + r, k * 6:k * 6 + 3] = c["lo"]
+                boxes[off + r, k * 6 + 3:k * 6 + 6] = c["hi"]
+
+    # static stream: (S, 9) geometry + (S, 10) attrs [n0 n1 n2 | prim]
+    tris, attrs = [], []
+    for m in mesh_set:
+        perm = np.asarray(mesh_recs[m][1], np.int64)
+        pad = perm < 0
+        perm_c = np.clip(perm, 0, None)
+        g = host[m]
+        v0 = g["v0"][perm_c].astype(np.float32)
+        v0[pad] = np.nan                     # pad slots never intersect
+        tris.append(np.concatenate([v0, g["e1"][perm_c], g["e2"][perm_c]],
+                                   axis=1).astype(np.float32))
+        nrm = g["normals"][g["tri"][perm_c]].reshape(-1, 9)
+        prim = np.where(pad, 0, perm_c).astype(np.float32)
+        attrs.append(np.concatenate([nrm, prim[:, None]], axis=1))
+
+    # stack bound of the reference's two-pop DFS over the merged graph
+    # (kind-3 edges jump from top nodes to mesh roots, larger indices)
+    depth = np.ones(N, np.int32)
+    for r in range(N - 1, -1, -1):
+        d = 1
+        for k in range(4):
+            if kind[r, k] >= 2:
+                d = max(d, 1 + depth[a_col[r, k]])
+        depth[r] = d
+    stack = max(128, int(6 * depth[0] + 16))
+
+    return _assemble(np.concatenate(tris), np.concatenate(attrs), kind,
+                     a_col, b_col, boxes, n_top, top_children, num_inst, L,
+                     stack, worlds, device)
+
+
+def from_reference_arrays(nodes, tris, inv_mats, attrs, leaf_size, stack,
+                          n_top, top_children, device=None) -> SceneWideBVH:
+    """The port's structure from the reference SceneWideBVH's arrays as
+    numpy: nodes (Nt, 36, 128), tris (Lt, 9L, 128), inv_mats (1+I, 12),
+    attrs (S, >=10).  The BVH is carried across unchanged, so both sides
+    trace the identical tree."""
+    L = int(leaf_size)
+    rows = np.array(nodes, np.float32).transpose(0, 2, 1).reshape(-1, 36)
+    slots = np.array(tris, np.float32).transpose(0, 2, 1).reshape(-1, 9)
+    inv_mats = np.array(inv_mats, np.float32)
+    num_inst = inv_mats.shape[0] - 1
+    kind = rows[:, 24:28].astype(np.int32)
+    a_col = rows[:, 28:32].astype(np.int32)
+    b_col = rows[:, 32:36].astype(np.int32)
+    attrs = np.asarray(attrs, np.float32)[:, :10]
+    sw = _assemble(slots[:attrs.shape[0]], attrs, kind, a_col, b_col,
+                   rows[:, :24], n_top, top_children, num_inst, L, stack,
+                   None, device)
+    return sw._replace(nodes=torch.as_tensor(rows, device=device),
+                       inv_mats=torch.as_tensor(inv_mats, device=device))
+
+
+def refit_scene_wide(sw: SceneWideBVH, worlds) -> SceneWideBVH:
+    """Per-frame refit: instance world boxes from the 8 transformed root
+    corners, top-tree unions bottom-up, inverse-world table.  The
+    object-space streams are static (RayTracer.cpp:326-341)."""
+    num_inst = sw.root_corners.shape[0]
+    wc = (torch.einsum("icd,ide->ice", sw.root_corners, worlds[:, :3, :3])
+          + worlds[:, None, 3, :3])
+    inst_lo, inst_hi = wc.amin(dim=1), wc.amax(dim=1)
+
+    big = worlds.new_full((3,), BIG)
+    node_lo, node_hi, rows = {}, {}, {}
+    for r in range(sw.n_top - 1, -1, -1):
+        lows, highs = [], []
+        for (knd, a, _b) in sw.top_children[r]:
+            lows.append(inst_lo[a] if knd == 3 else node_lo[a])
+            highs.append(inst_hi[a] if knd == 3 else node_hi[a])
+        node_lo[r] = torch.stack(lows).amin(dim=0)
+        node_hi[r] = torch.stack(highs).amax(dim=0)
+        lows += [big] * (4 - len(lows))
+        highs += [-big] * (4 - len(highs))
+        rows[r] = torch.cat([torch.stack(lows), torch.stack(highs)],
+                            dim=1).reshape(24)
+    top_boxes = torch.stack([rows[r] for r in range(sw.n_top)])
+    boxes = torch.cat([top_boxes, sw.mesh_boxes])
+    nodes = torch.cat([boxes, sw.static_cols], dim=1).contiguous()
+
+    # inverse worlds, row 0 identity (tag 0 = world space)
+    inv3 = torch.linalg.inv_ex(worlds[:, :3, :3]).inverse  # no host sync
+    t_inv = -torch.einsum("ic,icd->id", worlds[:, 3, :3], inv3)
+    ident = torch.cat([torch.eye(3, device=worlds.device).reshape(9),
+                       worlds.new_zeros(3)])[None]
+    inv_mats = torch.cat([ident, torch.cat([inv3.reshape(num_inst, 9),
+                                            t_inv], dim=1)]).contiguous()
+    return sw._replace(nodes=nodes, inv_mats=inv_mats)
+
+
+def trace_scene_wide_fused(sw: SceneWideBVH, ray_o, ray_d, t_min, t_max,
+                           impl: str = "cuda"):
+    """Closest hit for WORLD-space rays across all instances in one K1
+    launch.  Returns (HitRecord, normal): normal is the unnormalised
+    OBJECT-space interpolated vertex normal (zero where missed), resolved
+    with one gather from the static attrs table.  impl="cuda" goes through
+    the K1 wrapper, impl="xla" takes K1's plain version on any device."""
+    if impl == "xla":
+        t, u, v, slot, inst = trace_instanced_plain(
+            sw.tris, sw.inv_mats, sw.inst_slots, ray_o, ray_d, t_min, t_max)
+    else:
+        t, u, v, slot, inst = trace_tiles_instanced(
+            sw.nodes, sw.tris, sw.inv_mats, sw.inst_slots,
+            ray_o.contiguous(), ray_d.contiguous(), t_min, t_max,
+            sw.leaf_size, sw.stack)
+    hit = slot >= 0
+    att = sw.attrs[torch.clamp(slot.to(torch.int64), 0,
+                               sw.attrs.shape[0] - 1)]
+    w0 = (1.0 - u - v)[..., None]
+    nrm = w0 * att[:, 0:3] + u[..., None] * att[:, 3:6] \
+        + v[..., None] * att[:, 6:9]
+    nrm = torch.where(hit[..., None], nrm, 0.0)
+    prim = torch.where(hit, att[:, 9].to(torch.int64), -1)
+    rec = HitRecord(t=t, prim=prim, u=u, v=v, hit=hit,
+                    inst=inst.to(torch.int64))
+    return rec, nrm

@@ -1,0 +1,129 @@
+"""Spatial filter passes: kernels K2 (reflection) and K3 (diffuse) and
+their plain twins.
+
+Counterpart of raytracedggx_tpu/ops/spatial_pallas.py (the '[V]' toggle
+variant) and of the stencils ``_reflection_pass`` / ``_diffuse_pass`` in
+raytracedggx_tpu/denoise/spatial.py (the direct variant), which are the
+plain versions here.  The CUDA kernels (csrc/spatial.cu) compute one
+output pixel per thread straight from the channel-last (H, W, C) tensors,
+with a row kernel and a column kernel in place of the TPU's transposed
+planes; out-of-bounds taps are skipped, which equals the reference's zero
+padding (the hit gate is 0 there).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..utils.math3d import smoothstep
+from .cuda_lib import check_launch, load_library, stream_handle
+
+RADIUS = 16
+SIGMA_Z = 4.0
+
+
+def gaussian_radius(rough, width, height):
+    """GaussianRadiusFromRoughness (FilterCommon.hlsli:49-52): int clamp,
+    from the full image's width and height for both axes."""
+    return torch.clamp(0.1 * rough * width, 0.0, height * 0.05
+                       ).to(torch.int32).to(torch.float32)
+
+
+def _taps(x, axis):
+    """The 33 zero-filled shifts of an (H, W, ...) tensor along ``axis``:
+    tap i reads x at offset i (out-of-bounds reads are zeros)."""
+    pad = [0, 0] * (x.dim() - 1 - axis) + [RADIUS, RADIUS]
+    xp = F.pad(x, pad)
+    n = x.shape[axis]
+    return [xp.narrow(axis, RADIUS + i, n) for i in range(-RADIUS, RADIUS + 1)]
+
+
+def reflection_pass_plain(src_tm, normal, rough, depth, width, height, axis):
+    """Plain K2: one separable reflection pass over the tone-mapped
+    source (H, W, 3) (port of denoise/spatial.py:_reflection_pass)."""
+    n_c = normal[..., :3] * 2.0 - 1.0
+    sigma = (gaussian_radius(rough, width, height) + 1.0) / 3.0
+    mu = torch.zeros_like(src_tm)
+    wsum = torch.zeros_like(rough)
+    taps = zip(range(-RADIUS, RADIUS + 1), _taps(normal, axis),
+               _taps(src_tm, axis), _taps(depth, axis), _taps(rough, axis))
+    for i, nrm, s, dep, rgh in taps:
+        n = nrm[..., :3] * 2.0 - 1.0
+        a = float(abs(i)) / sigma
+        w = torch.where(nrm[..., 3] > 0.0, 1.0, 0.0)
+        w = w * torch.exp(-0.5 * a * a)
+        # clip: out-of-bounds taps decode to n=(-1,-1,-1) whose dot can
+        # exceed 1, and x^512 would overflow (their gate is zero)
+        w = w * torch.clamp(torch.sum(n_c * n, dim=-1), 0.0, 1.0) ** 512.0
+        w = w * torch.exp(-torch.abs(depth - dep) * depth * SIGMA_Z)
+        w = w * (1.0 - smoothstep(0.0, 0.5, torch.abs(rgh - rough)))
+        mu = mu + s * w[..., None]
+        wsum = wsum + w
+    return mu / torch.clamp(wsum, min=1e-30)[..., None]
+
+
+def diffuse_pass_plain(src_tm, normal, metal, depth, axis):
+    """Plain K3: one separable diffuse pass (port of
+    denoise/spatial.py:_diffuse_pass)."""
+    n_c = normal[..., :3] * 2.0 - 1.0
+    mu = torch.zeros_like(src_tm)
+    wsum = torch.zeros_like(metal)
+    taps = zip(_taps(normal, axis), _taps(src_tm, axis), _taps(depth, axis),
+               _taps(metal, axis))
+    for nrm, s, dep, mtl in taps:
+        n = nrm[..., :3] * 2.0 - 1.0
+        w = torch.where((nrm[..., 3] > 0.0) & (mtl < 1.0), 1.0, 0.0)
+        w = w * torch.clamp(torch.sum(n_c * n, dim=-1), 0.0, 1.0) ** 32.0
+        w = w * torch.exp(-torch.abs(depth - dep) * depth * SIGMA_Z)
+        mu = mu + s * w[..., None]
+        wsum = wsum + w
+    return mu / torch.clamp(wsum, min=1e-30)[..., None]
+
+
+def _launch(refl, src_tm, normal, aux, depth, width, height, axis):
+    H, W = src_tm.shape[0], src_tm.shape[1]
+    dev = src_tm.device
+    for name, t, shape in (("src_tm", src_tm, (H, W, 3)),
+                           ("normal", normal, (H, W, 4)),
+                           ("rough/metal", aux, (H, W)),
+                           ("depth", depth, (H, W))):
+        if (t.device != dev or t.dtype != torch.float32
+                or not t.is_contiguous() or tuple(t.shape) != shape):
+            raise ValueError(f"{name}: need a contiguous float32 {shape} "
+                             f"tensor on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if axis not in (0, 1):
+        raise ValueError(f"axis must be 0 or 1, got {axis}")
+    out = torch.empty((H, W, 3), dtype=torch.float32, device=dev)
+    err = load_library().rtggx_spatial_pass(
+        int(refl), int(axis), src_tm.data_ptr(), normal.data_ptr(),
+        aux.data_ptr(), depth.data_ptr(), out.data_ptr(), H, W,
+        float(width), float(height * 0.05), stream_handle(dev))
+    check_launch(err, "K2 reflection_pass" if refl else "K3 diffuse_pass")
+    return out
+
+
+def reflection_pass(src_tm, normal, rough, depth, width, height, axis):
+    """K2 wrapper: the CUDA kernel for CUDA tensors (or raise), the plain
+    version for CPU tensors."""
+    if src_tm.device.type == "cpu":
+        return reflection_pass_plain(src_tm, normal, rough, depth, width,
+                                     height, axis)
+    out = _launch(True, src_tm, normal, rough, depth, width, height, axis)
+    reflection_pass.launches += 1
+    return out
+
+
+def diffuse_pass(src_tm, normal, metal, depth, axis):
+    """K3 wrapper: the CUDA kernel for CUDA tensors (or raise), the plain
+    version for CPU tensors."""
+    if src_tm.device.type == "cpu":
+        return diffuse_pass_plain(src_tm, normal, metal, depth, axis)
+    out = _launch(False, src_tm, normal, metal, depth, 0, 0, axis)
+    diffuse_pass.launches += 1
+    return out
+
+
+reflection_pass.launches = 0
+diffuse_pass.launches = 0

@@ -1,0 +1,335 @@
+"""The ray-trace dispatch: raygen + closest-hit + miss, as three waves.
+
+Torch port of the fused-traversal path of raytracedggx_tpu/trace/raygen.py
+(RayTracing.hlsl:540-625): a primary wave (visibility buffer + G-buffers,
+``bary_mode="direct"``), a GGX reflection wave and a cosine diffuse wave,
+each traced by K1 (ops/scene_wide.trace_scene_wide_fused) and shaded in
+the sorted ray domain.
+
+Dropped TPU workarounds that change no output:
+- the static bucket prefix with its ``lax.cond`` overflow fallback
+  (raygen.py:200-310): K1 runs over the whole sorted wave, and dead rays
+  (t_max < 0) return at once in the kernel;
+- ``take_small``'s one-hot matmul is an index gather (trace/shade.py);
+- the diffuse wave's runtime ``lax.cond`` gate is a host-side
+  ``bool(any())`` — the wave still runs only when some ray is live.
+
+Not ported yet (raise NotImplementedError): ``bary_mode="ndc"``, the
+non-fused ``trace_fn`` branches, ``anchor_fn`` and the ``dbg_*`` knobs;
+the bounce sort key keeps the reference's default 3-bit octant.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..ops.ordering import BlockOrder, sort_rays_morton
+from ..sh import evaluate_sh_irradiance
+from ..utils.math3d import reflect, saturate
+from .brdf import PI, env_brdf_approx, f_schlick, vis_smith
+from .env import EnvMap, sample_env
+from .sampling import cos_dir, ggx_dir, sample_param
+from .shade import get_base_color, get_rough_metal, get_uv, take_small
+
+PRIMITIVE_BITS = 24
+T_MIN_SECONDARY = 1e-5
+T_MAX = 10000.0
+
+
+class FrameConstants(NamedTuple):
+    """CBGlobal + RayGenConstants (RayTracing.hlsl:46-60), row-vector."""
+    world_view_projs: torch.Tensor       # (I, 4, 4)
+    world_view_projs_prev: torch.Tensor  # (I, 4, 4)
+    worlds: torch.Tensor                 # (I, 4, 4)
+    world_its: torch.Tensor              # (I, 3, 3)
+    proj_to_world: torch.Tensor          # (4, 4) inverse(view @ proj)
+    eye: torch.Tensor                    # (3,)
+    proj_bias: torch.Tensor              # (2,) NDC jitter
+    frame_index: int                     # mod 256
+    inv_worlds: torch.Tensor             # (I, 4, 4)
+
+
+class MaterialsDev(NamedTuple):
+    base_colors: torch.Tensor   # (I, 4)
+    rough_metals: torch.Tensor  # (I, 2)
+
+
+def _normalize(v):
+    return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True),
+                           min=1e-20)
+
+
+def _per_ray(t_max, like):
+    return torch.as_tensor(t_max, dtype=torch.float32,
+                           device=like.device).expand(like.shape[0])
+
+
+def _order_fns(ray_order):
+    """(permute, unpermute) for a BlockOrder or (order, inverse)."""
+    if isinstance(ray_order, BlockOrder):
+        return ray_order.permute, ray_order.unpermute
+    order, inv = ray_order
+    return (lambda x: x[order]), (lambda x: x[inv])
+
+
+def _trace_ordered_fused(trace_fused, o, d, t_min, t_max, ray_order):
+    """Trace in ``ray_order`` and return (HitRecord, normal) row-major."""
+    if ray_order is None:
+        return trace_fused(o, d, t_min, t_max)
+    perm, unperm = _order_fns(ray_order)
+    bundle = perm(torch.cat([o, d, _per_ray(t_max, o)[:, None]], dim=-1))
+    rec, nrm = trace_fused(bundle[:, 0:3], bundle[:, 3:6], t_min,
+                           bundle[:, 6])
+    fl = unperm(torch.cat([torch.stack([rec.t, rec.u, rec.v], dim=-1), nrm],
+                          dim=-1))
+    ints = unperm(torch.stack([rec.prim, rec.inst], dim=-1))
+    rec = type(rec)(t=fl[:, 0], prim=ints[:, 0], u=fl[:, 1], v=fl[:, 2],
+                    hit=ints[:, 0] >= 0, inst=ints[:, 1])
+    return rec, fl[:, 3:6]
+
+
+def _trace_shade_ordered_fused(trace_fused, shade_fn, o, d, t_min, t_max,
+                               ray_order):
+    """Trace AND shade in the sorted ray domain (neighbouring rays tap
+    neighbouring env texels), un-permuting only the radiance.  Returns
+    (radiance (R, 3), secondary hit (R,)) in original ray order."""
+    perm, unperm = _order_fns(ray_order)
+    bundle = perm(torch.cat([o, d, _per_ray(t_max, o)[:, None]], dim=-1))
+    o_s, d_s = bundle[:, 0:3], bundle[:, 3:6]
+    rec, nrm = trace_fused(o_s, d_s, t_min, bundle[:, 6])
+    shaded, env_tap = shade_fn(rec, nrm, o_s, d_s)
+    rad = torch.where(rec.hit[..., None], shaded, env_tap)
+    out = unperm(torch.cat([rad, rec.hit[..., None].to(rad.dtype)], dim=-1))
+    return out[:, 0:3], out[:, 3] > 0.5
+
+
+def world_to_object(consts: FrameConstants, inst, p_world):
+    """Object-space position of world hit points through the per-instance
+    inverse transforms (RayTracing.hlsl:236-244, 308-311)."""
+    iw = take_small(consts.inv_worlds, inst)
+    return (torch.einsum("...c,...cd->...d", p_world, iw[..., :3, :3])
+            + iw[..., 3, :3])
+
+
+def _mip_level(env: EnvMap, rough):
+    """calcCubemapMipFromRoughness (RayTracing.hlsl:416-422)."""
+    level = 3.0 - 1.15 * torch.log2(torch.clamp(rough, min=1e-20))
+    return env.num_mips - 1.0 - level
+
+
+def _spec_env_shade(env: EnvMap, n, v, rough, color, metal, miss_dir, hit,
+                    miss_lod=0.0):
+    """computeReflection at the recursion limit (RayTracing.hlsl:442-481)
+    with the env tap serving double duty: hit lanes sample the
+    roughness-filtered spec direction, miss lanes (miss_dir, miss_lod).
+    Returns (spec, env_tap)."""
+    a = rough * rough
+    r = reflect(-v, n)
+    k = ((1.0 - a) * (torch.sqrt(torch.clamp(1.0 - a, min=0.0)) + a))[..., None]
+    d = n + (r - n) * k                      # lerp(N, R, k), unnormalized
+    nol = torch.sum(n * d, dim=-1)
+    nov = saturate(torch.sum(n * v, dim=-1))
+    tap_d = torch.where(hit[..., None], d, miss_dir)
+    tap_l = torch.where(hit, _mip_level(env, rough),
+                        torch.full_like(rough, float(miss_lod)))
+    env_tap = sample_env(env, tap_d, tap_l)
+    rad = torch.where((nol > 0.0)[..., None], env_tap, 0.0)
+    f0 = 0.04 * (1.0 - metal[..., None]) + color * metal[..., None]
+    return rad * env_brdf_approx(f0, rough, nov), env_tap
+
+
+def _shade_secondary(consts, mats, env, sh_coeffs, rec, ray_dir, fused_n,
+                     ray_o, damp_diffuse_albedo):
+    """Closest-hit shading of depth-1 rays (closestHitReflection /
+    closestHitDiffuse, RayTracing.hlsl:570-614): metallic > 0.5 takes the
+    env-specular route, else SH diffuse (albedo damped by 1 - metallic on
+    the diffuse wave).  fused_n: the OBJECT-space interpolated normal from
+    K1; the hit point is on the ray.  Returns (shaded, env_tap)."""
+    p_world = ray_o + rec.t[..., None] * ray_dir
+    pos_obj = world_to_object(consts, rec.inst, p_world)
+    n = _normalize(torch.einsum("...c,...cd->...d", fused_n,
+                                take_small(consts.world_its, rec.inst)))
+    v = -ray_dir
+    uv = get_uv(fused_n, pos_obj)
+    rough, metal = get_rough_metal(mats.rough_metals, rec.inst, uv)
+    color = get_base_color(mats.base_colors, rec.inst)[..., :3]
+    spec, env_tap = _spec_env_shade(env, n, v, rough, color, metal,
+                                    miss_dir=ray_dir, hit=rec.hit)
+    albedo = color * (1.0 - metal[..., None]) if damp_diffuse_albedo \
+        else color
+    diff = evaluate_sh_irradiance(sh_coeffs, n) / PI * albedo
+    return torch.where((metal > 0.5)[..., None], spec, diff), env_tap
+
+
+def primary_rays(consts: FrameConstants, width: int, height: int):
+    """Jittered camera rays from the near plane (z_ndc = 0), so near-clip
+    behaviour matches the raster pass.  Returns (ndc, p_near, ray_d)."""
+    dev = consts.eye.device
+    xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) \
+        / width * 2.0 - 1.0
+    rows = torch.arange(height, dtype=torch.float32, device=dev)
+    ys = -((rows + 0.5) / height * 2.0 - 1.0)
+    sy, sx = torch.meshgrid(ys, xs, indexing="ij")
+    ndc = torch.stack([sx.reshape(-1), sy.reshape(-1)], dim=-1)
+    ndc = ndc - consts.proj_bias                                 # :300
+    ndc_h = torch.cat([ndc, torch.zeros_like(ndc[..., :1]),
+                       torch.ones_like(ndc[..., :1])], dim=-1)
+    world = ndc_h @ consts.proj_to_world
+    p_near = world[..., :3] / world[..., 3:4]
+    return ndc, p_near, _normalize(p_near - consts.eye)
+
+
+def primary_surface(consts: FrameConstants, mats: MaterialsDev, width: int,
+                    height: int, trace_fused, ray_order=None):
+    """Primary cast replacing the visibility raster + getPrimarySurface
+    (RayTracing.hlsl:277-333), barycentrics straight from the ray hit.
+    Returns a dict of flat (R,) / (R, C) tensors."""
+    ndc, p_near, ray_d = primary_rays(consts, width, height)
+    rec, nrm_obj = _trace_ordered_fused(trace_fused, p_near, ray_d, 0.0,
+                                        T_MAX, ray_order)
+    p_world = p_near + rec.t[..., None] * ray_d
+    pos_obj = world_to_object(consts, rec.inst, p_world)
+    n = _normalize(torch.einsum("...c,...cd->...d", nrm_obj,
+                                take_small(consts.world_its, rec.inst)))
+
+    uv = get_uv(nrm_obj, pos_obj)
+    rough, metal = get_rough_metal(mats.rough_metals, rec.inst, uv)
+    color = get_base_color(mats.base_colors, rec.inst)[..., :3]
+    # sky pixels: P = near-plane point, N = 0, V toward eye (:319-331)
+    hit3 = rec.hit[..., None]
+    p_world = torch.where(hit3, p_world, p_near)
+    n = torch.where(hit3, n, 0.0)
+    v_dir = _normalize(consts.eye - p_world)
+
+    # velocity (RayTracing.hlsl:308-311)
+    pos_h = torch.cat([pos_obj, torch.ones_like(pos_obj[..., :1])], dim=-1)
+    prev_clip = torch.einsum("...c,...cd->...d", pos_h,
+                             take_small(consts.world_view_projs_prev,
+                                        rec.inst))
+    velocity = ((ndc - prev_clip[..., :2] / prev_clip[..., 3:4])
+                * ndc.new_tensor([0.5, -0.5]))
+    velocity = torch.where(hit3, velocity, 0.0)
+
+    # raster-equivalent depth for the denoiser (z_clip / w of the hit)
+    cur_clip = torch.einsum("...c,...cd->...d", pos_h,
+                            take_small(consts.world_view_projs, rec.inst))
+    depth = torch.where(rec.hit, cur_clip[..., 2] / cur_clip[..., 3], 1.0)
+
+    # visibility ((inst << PRIMITIVE_BITS) | prim) + 1 (PSVisibility:18-24)
+    vis = torch.where(rec.hit, ((rec.inst << PRIMITIVE_BITS) | rec.prim) + 1,
+                      0)
+    metal = torch.where(rec.hit, metal, 0.0)      # rghMtl.y = 0 for sky
+    rough = torch.where(rec.hit, rough, 0.0)
+    return dict(hit=rec.hit, vis=vis, n=n, v=v_dir, p=p_world, color=color,
+                rough=rough, metal=metal, velocity=velocity, depth=depth)
+
+
+def pixel_samples(width, height, frame_index, device):
+    """(R, 2) per-pixel sample parameters of a frame (getSampleParam)."""
+    px = torch.arange(width, device=device).repeat(height)
+    py = torch.arange(height, device=device).repeat_interleave(width)
+    return sample_param(px, py, width, frame_index)
+
+
+def reflection_rays(surf, xi):
+    """The reflection wave's rays from the primary surface: GGX half
+    vector h, N.L, direction (-V for sky pixels) and t_max (-1 = dead:
+    sky pixels take env directly, N.L <= 0 pixels contribute 0)."""
+    hit, n, v, rough = surf["hit"], surf["n"], surf["v"], surf["rough"]
+    h = ggx_dir(rough * rough, n, xi)
+    r_dir = reflect(-v, h)
+    nol = torch.sum(n * r_dir, dim=-1)
+    trace_dir = torch.where(hit[..., None], r_dir, -v)
+    tmax_r = torch.where(hit & (nol > 0.0), T_MAX, -1.0)
+    return h, nol, trace_dir, tmax_r
+
+
+def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
+                   env: EnvMap, sh_coeffs, width: int, height: int,
+                   trace_fused, ray_order=None,
+                   bary_mode: str = "direct", trace_fn=None, anchor_fn=None,
+                   dbg_no_refl_trace=False, dbg_no_secondary_shade=False,
+                   dbg_env_mode="full", dbg_miss_lod=0.0):
+    """Full DispatchRays equivalent on the fused (K1) path.  Returns a dict
+    of (H, W, C) images: refl, diff (radiance), normal (xyz*0.5+0.5 + hit
+    alpha), rough_metal, velocity, depth, vis (int64)."""
+    if (bary_mode != "direct" or trace_fn is not None or anchor_fn is not None
+            or dbg_no_refl_trace or dbg_no_secondary_shade
+            or dbg_env_mode != "full" or dbg_miss_lod != 0.0):
+        raise NotImplementedError(
+            "only the fused direct-barycentric path is ported (ndc, trace_fn, "
+            "anchor_fn and the dbg_* knobs wait)")
+    surf = primary_surface(consts, mats, width, height, trace_fused,
+                           ray_order)
+    hit = surf["hit"]
+    n, v, p = surf["n"], surf["v"], surf["p"]
+    rough, metal, color = surf["rough"], surf["metal"], surf["color"]
+    dev = n.device
+
+    xi = pixel_samples(width, height, consts.frame_index, dev)
+    lo = tlas.aabb_min.amin(dim=0)
+    hi = tlas.aabb_max.amax(dim=0)
+
+    def wave(dirs, tmax, damp_diffuse_albedo):
+        order = sort_rays_morton(p, dirs, lo, hi, active=tmax > 0)
+
+        def shade(rec, nrm, o_s, d_s):
+            return _shade_secondary(consts, mats, env, sh_coeffs, rec, d_s,
+                                    nrm, o_s, damp_diffuse_albedo)
+
+        return _trace_shade_ordered_fused(trace_fused, shade, p, dirs,
+                                          T_MIN_SECONDARY, tmax, order)
+
+    # ---------------- reflection wave (computeReflection, depth 0) -------
+    h, nol, trace_dir, tmax_r = reflection_rays(surf, xi)
+    radiance_r, hit_r = wave(trace_dir, tmax_r, False)
+    # closestHitReflection early-out (:573): payload seeded with
+    # color * metallic; an all-nonpositive seed skips hit shading
+    seed = color * metal[..., None]
+    seed_dead = torch.all(seed <= 0.0, dim=-1, keepdim=True)
+    radiance_r = torch.where(seed_dead & hit_r[..., None], seed, radiance_r)
+
+    # primary BRDF weight (RayTracing.hlsl:461-478)
+    f0 = 0.04 * (1.0 - metal[..., None]) + color * metal[..., None]
+    voh = saturate(torch.sum(v * h, dim=-1))
+    noh = saturate(torch.sum(n * h, dim=-1))
+    nov = saturate(torch.sum(n * v, dim=-1))
+    fres = f_schlick(f0, voh)
+    vis_t = vis_smith(rough, nov, nol)
+    weight = (nol * vis_t * (4.0 * voh / noh))[..., None] * fres
+    refl = torch.where(hit[..., None],
+                       torch.where((nol > 0.0)[..., None],
+                                   radiance_r * weight, 0.0),
+                       radiance_r)
+
+    # ---------------- diffuse wave (computeDiffuse, depth 0) -------------
+    # Gated on the host: with every hit pixel fully metallic (the default
+    # materials) no diffuse ray is live, every hit pixel's diff is masked
+    # to 0 below, and a sky pixel's diff is env(-V), which the reflection
+    # wave already sampled (its trace_dir is -V there and cannot hit).
+    tmax_d = torch.where(hit & (metal < 1.0), T_MAX, -1.0)
+    if bool((tmax_d > 0.0).any()):
+        d_dir = cos_dir(n, xi)
+        trace_dir_d = torch.where(hit[..., None], d_dir, -v)
+        radiance_d, _ = wave(trace_dir_d, tmax_d, True)
+        # primary albedo weight: albedo * (1 - 0.04) at depth 0 (:532)
+        diff = torch.where(hit[..., None], radiance_d * color * (1.0 - 0.04),
+                           radiance_d)
+    else:
+        diff = torch.where(hit[..., None], 0.0, radiance_r)
+    # metallic >= 1 pixels never get a diffuse ray (raygenMain:559)
+    diff = torch.where((metal < 1.0)[..., None], diff, 0.0)
+
+    hw = (height, width)
+    return dict(
+        refl=refl.reshape(hw + (3,)),
+        diff=diff.reshape(hw + (3,)),
+        normal=torch.cat([n * 0.5 + 0.5, hit[..., None].to(n.dtype)],
+                         dim=-1).reshape(hw + (4,)),
+        rough_metal=torch.stack([rough, metal], dim=-1).reshape(hw + (2,)),
+        velocity=surf["velocity"].reshape(hw + (2,)),
+        depth=surf["depth"].reshape(hw),
+        vis=surf["vis"].reshape(hw),
+    )

@@ -1,0 +1,108 @@
+"""The port's CUDA kernels (K1, K2, K3) against their plain torch versions
+on the card.  Every test here needs an NVIDIA GPU with nvcc and skips
+without one; this file imports neither jax nor the JAX package, so on a
+GPU machine without JAX it runs on its own:
+
+    python -m pytest -q --noconftest tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from raytracedggx_tpu_torch.denoise import tm
+from raytracedggx_tpu_torch.ops import fused, spatial_cuda
+from raytracedggx_tpu_torch.ops.scene_wide import (build_scene_wide,
+                                                   refit_scene_wide)
+from raytracedggx_tpu_torch.scene import Scene, default_materials, ground_cube
+from raytracedggx_tpu_torch.trace.geometry import upload_scene
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (kernels build with nvcc on sm_90a)")
+    return torch.device("cuda", 0)
+
+
+def _rand_rays(rng, n, device):
+    o = rng.uniform(-6.0, 6.0, size=(n, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(3.0, 8.0, size=n)
+    d = rng.uniform(-2.0, 2.0, size=(n, 3)).astype(np.float32) - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return (torch.as_tensor(o, device=device),
+            torch.as_tensor(d, device=device))
+
+
+@pytest.mark.parametrize("n_extra", [0, 7])
+def test_k1_kernel_matches_plain(cuda, n_extra):
+    rng = np.random.default_rng(7)
+    extra = tuple((2.5 * i - 5.0, 1.0, 2.5 * ((i * 7) % 3), 0.4)
+                  for i in range(n_extra))
+    scene = Scene(meshes=[ground_cube(), ground_cube()],
+                  materials=default_materials(),
+                  pos_scale=np.array([0.0, 2.0, 0.0, 1.0], np.float32),
+                  extra_instances=extra)
+    sw = build_scene_wide(upload_scene(scene, cuda), scene.mesh_ids,
+                          leaf_size=64, device=cuda)
+    sw = refit_scene_wide(sw, scene.worlds(1.3).to(cuda))
+    o, d = _rand_rays(rng, 4096, cuda)
+    t_max = torch.where(torch.arange(4096, device=cuda) % 3 == 0, -1.0, 1e4)
+    n0 = fused.trace_tiles_instanced.launches
+    got = fused.trace_tiles_instanced(sw.nodes, sw.tris, sw.inv_mats,
+                                      sw.inst_slots, o, d, 0.0, t_max,
+                                      sw.leaf_size, sw.stack)
+    ref = fused.trace_instanced_plain(sw.tris, sw.inv_mats, sw.inst_slots,
+                                      o, d, 0.0, t_max)
+    torch.cuda.synchronize()
+    assert fused.trace_tiles_instanced.launches == n0 + 1
+    hit = ref[3] >= 0
+    assert torch.equal(got[3] >= 0, hit) and bool(hit.any())
+    assert not bool((got[3][t_max < 0] >= 0).any())
+    torch.testing.assert_close(got[0][hit], ref[0][hit], rtol=1e-4,
+                               atol=1e-5)
+    same = ((got[3] == ref[3]) & (got[4] == ref[4]))[hit].float().mean()
+    assert float(same) >= 0.99
+
+
+@pytest.mark.parametrize("axis", [1, 0])
+def test_spatial_kernels_match_plain(cuda, axis):
+    rng = np.random.default_rng(11)
+    h, w = 45, 70
+    normal = rng.random((h, w, 4)).astype(np.float32)
+    n = normal[..., :3] * 2 - 1
+    normal[..., :3] = n / np.linalg.norm(n, axis=-1, keepdims=True) * 0.5 \
+        + 0.5
+    normal[..., 3] = rng.random((h, w)) > 0.2
+
+    def dev(x):
+        return torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                               device=cuda)
+
+    nrm = dev(normal)
+    rough = dev(rng.random((h, w)))
+    metal = dev(rng.choice([0.0, 0.5, 1.0], size=(h, w)))
+    depth = dev(0.3 + 0.6 * rng.random((h, w)))
+    src = tm(dev(rng.random((h, w, 3)) * 3)).contiguous()
+    pairs = (
+        (spatial_cuda.reflection_pass(src, nrm, rough, depth, w, h, axis),
+         spatial_cuda.reflection_pass_plain(src, nrm, rough, depth, w, h,
+                                            axis)),
+        (spatial_cuda.diffuse_pass(src, nrm, metal, depth, axis),
+         spatial_cuda.diffuse_pass_plain(src, nrm, metal, depth, axis)))
+    for got, ref in pairs:
+        torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
+
+
+def test_wrappers_refuse_bad_inputs(cuda):
+    """A CUDA tensor never falls back to the plain version: bad inputs
+    raise instead."""
+    x = torch.zeros((8, 8, 3), device=cuda)
+    n = torch.zeros((8, 8, 4), device=cuda)
+    a = torch.zeros((8, 8), device=cuda)
+    with pytest.raises(ValueError):
+        spatial_cuda.reflection_pass(x.double(), n, a, a, 8, 8, 1)
+    with pytest.raises(ValueError):
+        spatial_cuda.diffuse_pass(x, n, a.t(), a, 0)

@@ -1,0 +1,104 @@
+"""PyTorch port parity, whole frames: the port's Renderer against the JAX
+package's Renderer(traversal="wide") on the golden cube scene at 96x54.
+
+The JAX renderer's Pallas traversal kernel is swapped for its brute-force
+JAX twin (test_torch_raygen.jax_bruteforce_fused; the kernel itself is
+held to that contract by test_torch_scene_wide.py), because the
+interpret-mode kernel inside the jitted frame takes minutes to compile
+on a CPU.  Everything else is the reference's own wide-path frame: refit,
+waves, denoise, TAA with f16 history, tone map.  The bar is
+tests/test_golden.py:92-99 (the reference's own fused-vs-jax frame A/B).
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import raytracedggx_tpu.ops.scene_wide as j_scene_wide
+from raytracedggx_tpu.denoise.temporal import temporal_ss as j_temporal
+from raytracedggx_tpu.engine import RenderConfig as JRenderConfig
+from raytracedggx_tpu.engine import Renderer as JRenderer
+from raytracedggx_tpu.post import tone_map as j_tone_map
+from raytracedggx_tpu.scene import Scene as JScene
+from raytracedggx_tpu.scene import default_materials as j_materials
+from raytracedggx_tpu.scene.mesh import ground_cube as j_ground_cube
+
+from raytracedggx_tpu_torch.denoise import temporal_ss
+from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
+from raytracedggx_tpu_torch.post import tone_map
+from raytracedggx_tpu_torch.scene import Scene, default_materials, ground_cube
+from test_torch_raygen import jax_bruteforce_fused
+
+W, H, FRAMES = 96, 54, 3
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
+                      "cube_scene_96x54_f3.png")
+POS = np.array([0, 3.0, 0, 1.0], np.float32)
+
+
+def _frame_bar(got, want):
+    """tests/test_golden.py:92-99."""
+    diff = np.abs(np.clip(got, 0, 1) - np.clip(want, 0, 1))
+    assert float(diff.mean()) < 1e-3, f"mean diff {diff.mean()}"
+    assert float(diff.max()) < 0.15, f"max diff {diff.max()}"
+    frac_big = float((diff.max(axis=-1) > 0.05).mean())
+    assert frac_big < 2e-3, f"{frac_big:.2%} pixels differ > 0.05"
+
+
+def test_frames_match_reference_renderer(monkeypatch):
+    monkeypatch.setattr(j_scene_wide, "trace_scene_wide_fused",
+                        jax_bruteforce_fused)
+    jr = JRenderer(JScene(meshes=[j_ground_cube(), j_ground_cube()],
+                          materials=j_materials(), pos_scale=POS),
+                   config=JRenderConfig(width=W, height=H, traversal="wide"))
+    tr = Renderer(Scene(meshes=[ground_cube(), ground_cube()],
+                        materials=default_materials(), pos_scale=POS),
+                  config=RenderConfig(width=W, height=H))
+    js, ts = jr.init_state(), tr.init_state()
+    # 3 all-metal frames (diffuse wave and filter gated off), then 2 at
+    # metallic 0.5 (both live)
+    for frames, metallic in ((FRAMES, None), (2, 0.5)):
+        if metallic is not None:
+            for r in (jr, tr):
+                r.set_metallic(0, metallic)
+                r.set_metallic(1, metallic)
+        for _ in range(frames):
+            js, jf, _ = jr.step(js, 1 / 60)
+            ts, tf, _ = tr.step(ts, 1 / 60)
+        _frame_bar(tf.numpy(), np.asarray(jf))
+    assert ts.history.dtype == torch.float16
+    assert np.asarray(js.history).dtype == np.float16
+
+
+def test_frames_match_golden_image():
+    """The JAX package's frozen output (traversal="jax"), widened by the
+    PNG's 8-bit quantisation."""
+    from PIL import Image
+
+    r = Renderer(Scene(meshes=[ground_cube(), ground_cube()],
+                       materials=default_materials(), pos_scale=POS),
+                 config=RenderConfig(width=W, height=H))
+    state, frame = r.run_frames(FRAMES)
+    want = np.asarray(Image.open(GOLDEN)).astype(np.float32) / 255.0
+    diff = np.abs(np.clip(frame.numpy(), 0, 1) - want)
+    assert float(diff.mean()) < 3e-3
+    assert float((diff.max(axis=-1) > 0.05).mean()) < 2e-3
+    assert state.history.dtype == torch.float16 and state.frame == FRAMES
+
+
+@pytest.mark.parametrize("motion", [0.004, 0.2])   # tent / gather branch
+def test_temporal_and_tonemap_match_reference(rng, motion):
+    cur = rng.random((H, W, 4)).astype(np.float32) * 2
+    cur[..., 3] = (rng.random((H, W)) > 0.3).astype(np.float32)
+    hist = (rng.random((H, W, 4)) * 2).astype(np.float16)
+    vel = ((rng.random((H, W, 2)) - 0.5) * motion).astype(np.float32)
+    want = np.asarray(j_temporal(jnp.asarray(cur), jnp.asarray(hist),
+                                 jnp.asarray(vel)))
+    got = temporal_ss(torch.as_tensor(cur), torch.as_tensor(hist),
+                      torch.as_tensor(vel)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(tone_map(torch.as_tensor(want.copy())).numpy(),
+                               np.asarray(j_tone_map(jnp.asarray(want))),
+                               atol=1e-6)

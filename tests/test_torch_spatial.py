@@ -1,0 +1,100 @@
+"""PyTorch port parity, spatial filters (K2 reflection, K3 diffuse).
+
+The plain versions of K2 and K3 — one separable pass each axis — and the
+full reflection and diffuse filters against the JAX package's XLA
+stencils and its Pallas kernels in interpret mode, on the same numpy
+G-buffers, at the bar of tests/test_spatial_pallas.py (atol 2e-5,
+rtol 1e-4)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raytracedggx_tpu.denoise import spatial as js
+
+from raytracedggx_tpu_torch.denoise import (diffuse_spatial_filter,
+                                            reflection_spatial_filter, tm)
+from raytracedggx_tpu_torch.ops import spatial_cuda as ks
+
+H, W = 24, 32
+TOL = dict(atol=2e-5, rtol=1e-4)
+
+
+def _gbuffers(rng):
+    """tests/test_spatial_pallas.py:gbuffers plus radiance inputs."""
+    normal = rng.random((H, W, 4)).astype(np.float32)
+    n = normal[..., :3] * 2 - 1
+    n /= np.linalg.norm(n, axis=-1, keepdims=True)
+    normal[..., :3] = n * 0.5 + 0.5
+    normal[..., 3] = (rng.random((H, W)) > 0.2).astype(np.float32)
+    rough = rng.random((H, W)).astype(np.float32)
+    depth = (0.3 + 0.6 * rng.random((H, W))).astype(np.float32)
+    metal = rng.choice([0.0, 0.5, 1.0], size=(H, W)).astype(np.float32)
+    refl = (rng.random((H, W, 3)) * 3).astype(np.float32)
+    diff = (rng.random((H, W, 3)) * 2).astype(np.float32)
+    flt_rfl = rng.random((H, W, 4)).astype(np.float32)
+    return dict(normal=normal, rough=rough, depth=depth, metal=metal,
+                refl=refl, diff=diff, flt_rfl=flt_rfl)
+
+
+def _pair(g):
+    return ({k: jnp.asarray(v) for k, v in g.items()},
+            {k: torch.as_tensor(v) for k, v in g.items()})
+
+
+@pytest.mark.parametrize("axis", [1, 0])
+def test_plain_passes_match_reference_stencils(rng, axis):
+    j, t = _pair(_gbuffers(rng))
+    src = tm(t["refl"])
+    want, _ = js._reflection_pass(jnp.asarray(src.numpy()), j["normal"],
+                                  j["rough"], j["depth"], axis, W, H)
+    got = ks.reflection_pass_plain(src, t["normal"], t["rough"], t["depth"],
+                                   W, H, axis)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+    src = tm(t["diff"])
+    want, _ = js._diffuse_pass(jnp.asarray(src.numpy()), j["normal"],
+                               j["metal"], j["depth"], axis)
+    got = ks.diffuse_pass_plain(src, t["normal"], t["metal"], t["depth"],
+                                axis)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("ref_impl", ["xla", "pallas"])
+def test_filters_match_reference(rng, ref_impl):
+    j, t = _pair(_gbuffers(rng))
+    interp = ref_impl == "pallas"
+    want_r = js.reflection_spatial_filter(j["refl"], j["normal"], j["rough"],
+                                          j["depth"], W, H, impl=ref_impl,
+                                          interpret=interp)
+    want_d = js.diffuse_spatial_filter(j["diff"], j["flt_rfl"], j["normal"],
+                                       j["metal"], j["depth"], impl=ref_impl,
+                                       interpret=interp)
+    for impl in ("xla", "cuda"):      # CPU tensors: "cuda" takes the plain
+        got_r = reflection_spatial_filter(t["refl"], t["normal"], t["rough"],
+                                          t["depth"], W, H, impl=impl)
+        got_d = diffuse_spatial_filter(t["diff"], t["flt_rfl"], t["normal"],
+                                       t["metal"], t["depth"], impl=impl)
+        np.testing.assert_allclose(got_r.numpy(), np.asarray(want_r), **TOL)
+        np.testing.assert_allclose(got_d.numpy(), np.asarray(want_d), **TOL)
+
+
+def test_wrappers_take_plain_versions_for_cpu_tensors(rng):
+    """On CPU tensors the K2/K3 wrappers return their plain version's
+    result and launch nothing."""
+    _, t = _pair(_gbuffers(rng))
+    before = (ks.reflection_pass.launches, ks.diffuse_pass.launches)
+    src = tm(t["refl"]).contiguous()
+    for axis in (0, 1):
+        torch.testing.assert_close(
+            ks.reflection_pass(src, t["normal"], t["rough"], t["depth"], W,
+                               H, axis),
+            ks.reflection_pass_plain(src, t["normal"], t["rough"],
+                                     t["depth"], W, H, axis),
+            rtol=0, atol=0)
+        torch.testing.assert_close(
+            ks.diffuse_pass(src, t["normal"], t["metal"], t["depth"], axis),
+            ks.diffuse_pass_plain(src, t["normal"], t["metal"], t["depth"],
+                                  axis), rtol=0, atol=0)
+    assert (ks.reflection_pass.launches, ks.diffuse_pass.launches) == before
