@@ -1,23 +1,32 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's default frame path once on one GPU.
+"""Drive the PyTorch/CUDA port's frame paths once on one GPU.
 
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure ends the run non-zero):
  0. the machine: nvidia-smi name and power limit, torch/CUDA/nvcc versions;
- 1. build the CUDA kernels from csrc/ (nvcc, sm_90a) and load them;
+ 1. build the CUDA kernels from csrc/ (one nvcc per source, sm_90a) and
+    load them;
  2. the scene: ground cube + a deterministic ~82k-triangle displaced
-    icosphere standing in for the bunny, and its instanced scene BVH (L=64);
+    icosphere standing in for the bunny; its instanced scene BVH (L=64) for
+    traversal="wide" and its per-mesh trees (leaf 8) for "pallas" (FlatBVH)
+    and "pallas4" (WideBVH);
  3. each kernel against its plain torch version on the card, at the shapes
-    the frame gives it (K1 on 16,384 rays, K2/K3 on 1280x720 G-buffers);
- 4. the main path: Renderer(device="cuda") at 1280x720, 3 warm-up then 60
-    timed frames with launch counts, then 10 frames at metallic 0.5 (the
-    diffuse wave and filter live);
+    the frame gives it: K1, K4 and K5 on 16,384 primary and reflection rays
+    of the "wide" frame (K4/K5 in the model instance's object space), and
+    on the 9-instance nested scene (K4/K5 through their per-instance loop);
+    K2/K3 on 1280x720 G-buffers;
+ 4. the paths at 1280x720, each with every launch count set to 0 just
+    before it and read just after: "wide" (3 warm-up, 60 timed frames, then
+    10 at metallic 0.5), then "pallas4" and "pallas" (3 warm-up, 20 timed,
+    then 5 at metallic 0.5);
  5. the golden cube scene at 96x54, 3 frames, against the JAX package's
-    frozen PNG.
-The second-to-last line is a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}.  Needs CUDA: without it this exits non-zero
-and prints no result.  Imports nothing of JAX or the JAX package.
+    frozen PNGs: the default frame on "wide", and bary_mode="ndc" with
+    emulate_formats on "pallas4" and "pallas".
+The second-to-last line is a JSON summary of the kernels (launches on
+their path, parity error, kernel / plain times, the bound); the last line
+is {"ok": true, "device": {...}}.  Needs CUDA: without it this exits
+non-zero and prints no result.  Imports nothing of JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -34,10 +43,20 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "cube_scene_96x54_f3.png")
+GOLDEN_NDC_FMT = os.path.join(ROOT, "tests", "golden",
+                              "cube_scene_96x54_ndc_fmt_f3.png")
 W, H = 1280, 720
 TIMED_FRAMES = 60
 METAL_FRAMES = 10
+PER_MESH_TIMED, PER_MESH_METAL = 20, 5
 K1_RAYS = 16384
+T_MIN_SECONDARY = 1e-5
+# the bound: H100 SXM data sheet (dense fp32 outside the tensor cores,
+# HBM3), and fp32 operations per test as the kernels' sources count them
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+BOX_OPS = 25        # slab test: 6 sub, 6 mul, 6 min/max, 4 min/max, 3 cmp
+TRI_OPS = 51        # Moller-Trumbore: 2 cross, 3 dots, rcp, 3 sub, 6 cmp
 
 
 def check(ok, msg):
@@ -201,50 +220,136 @@ def frame_rays(renderer):
             torch.cat([t_prim, tmax_r]))
 
 
+def bound(nbytes, ops):
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    the larger of bytes over the HBM rate and fp32 operations over the
+    fp32 peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def trace_bound(inputs, n_rays, out_bytes_per_ray, stats):
+    """Bound of a closest-hit launch: each input read once and each output
+    written once; the box and triangle tests counted by the kernel on
+    these rays."""
+    nbytes = sum(t.numel() * t.element_size() for t in inputs if t is not None)
+    n_box, n_tri = (int(x) for x in stats.tolist())
+    print(f"    {n_box} box tests, {n_tri} triangle tests "
+          f"({n_box / n_rays:.2f} / {n_tri / n_rays:.2f} per ray)")
+    return bound(nbytes + n_rays * out_bytes_per_ray,
+                 BOX_OPS * n_box + TRI_OPS * n_tri)
+
+
+def hold_hits(name, got, ref, t_max):
+    """The traversal bar of tests/test_scene_wide.py:56-63 on (t, id,
+    inst) triples (inst None for one mesh): exact hit mask, t at rtol 1e-4
+    atol 1e-5, (id, inst) equal on >= 99% of hits, dead rays miss.
+    Returns the max |dt| over hits."""
+    (g_t, g_id, g_inst), (r_t, r_id, r_inst) = got, ref
+    g_hit, r_hit = g_id >= 0, r_id >= 0
+    n_diff = int((g_hit != r_hit).sum())
+    check(n_diff == 0, f"{name}: hit mask exact ({int(r_hit.sum())} hits "
+          f"of {g_t.shape[0]} rays, {n_diff} differ)")
+    err = (g_t[r_hit] - r_t[r_hit]).abs()
+    tol = 1e-5 + 1e-4 * r_t[r_hit].abs()
+    max_err = float(err.max()) if err.numel() else 0.0
+    check(bool((err <= tol).all()), f"{name}: t at rtol 1e-4 atol 1e-5 "
+          f"(max |dt| {max_err:.3e})")
+    same = g_id == r_id
+    if g_inst is not None:
+        same = same & (g_inst == r_inst)
+    frac = float(same[r_hit].float().mean())
+    check(frac >= 0.99, f"{name}: ids agree on {frac:.5f} of hits")
+    dead = t_max < 0
+    check(not bool((g_hit & dead).any()), f"{name}: all "
+          f"{int(dead.sum())} rays with t_max < 0 miss")
+    return max_err
+
+
+def time_pair(name, kern, plain, kern_reps=20, plain_reps=3):
+    ms, plain_ms = cuda_ms(kern, kern_reps), cuda_ms(plain, plain_reps)
+    print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return ms, plain_ms
+
+
 def k1_check(name, sw, o, d, t_max, t_min=0.0):
-    """K1 against its plain version on the same rays; returns
-    (max |dt| over hits, kernel ms, plain ms)."""
+    """K1 against its plain version on the same rays; returns a dict of
+    max |dt| over hits, kernel and plain ms, and the bound."""
     from raytracedggx_tpu_torch.ops.fused import (trace_instanced_plain,
                                                   trace_tiles_instanced)
 
-    def kern():
+    def kern(stats=None):
         return trace_tiles_instanced(sw.nodes, sw.tris, sw.inv_mats,
                                      sw.inst_slots, o, d, t_min, t_max,
-                                     sw.leaf_size, sw.stack)
+                                     sw.leaf_size, sw.stack, stats)
 
     def plain():
         return trace_instanced_plain(sw.tris, sw.inv_mats, sw.inst_slots, o,
                                      d, t_min, t_max)
 
     got, ref = kern(), plain()
-    if o.is_cuda:
-        torch.cuda.synchronize()
-    g_hit, r_hit = got[3] >= 0, ref[3] >= 0
-    n_diff = int((g_hit != r_hit).sum())
-    check(n_diff == 0, f"K1 {name}: hit mask exact "
-          f"({int(r_hit.sum())} hits of {o.shape[0]} rays, {n_diff} differ)")
-    h = r_hit
-    err = (got[0][h] - ref[0][h]).abs()
-    tol = 1e-5 + 1e-4 * ref[0][h].abs()
-    check(bool((err <= tol).all()), f"K1 {name}: t at rtol 1e-4 atol 1e-5 "
-          f"(max |dt| {float(err.max()) if err.numel() else 0.0:.3e})")
-    same = ((got[3] == ref[3]) & (got[4] == ref[4]))[h].float().mean()
-    check(float(same) >= 0.99, f"K1 {name}: (inst, slot) agree on "
-          f"{float(same):.5f} of hits")
-    dead = t_max < 0
-    check(not bool((g_hit & dead).any()), f"K1 {name}: all "
-          f"{int(dead.sum())} rays with t_max < 0 miss")
-    ms = plain_ms = None
-    if o.is_cuda:
-        ms = cuda_ms(kern, 20)
-        plain_ms = cuda_ms(plain, 3)
-        print(f"  K1 {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    return float(err.max()) if err.numel() else 0.0, ms, plain_ms
+    torch.cuda.synchronize()
+    err = hold_hits(f"K1 {name}", (got[0], got[3], got[4]),
+                    (ref[0], ref[3], ref[4]), t_max)
+    stats = torch.zeros(2, dtype=torch.int64, device=o.device)
+    kern(stats)
+    bound_ms, bound_by = trace_bound(
+        (sw.nodes, sw.tris, sw.inv_mats, o, d, t_max), o.shape[0], 20, stats)
+    ms, plain_ms = time_pair(f"K1 {name}", kern, plain)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def per_mesh_check(name, tree, kernel, o, d, t_min, t_max, inv):
+    """K4 or K5 (``kernel``: its wrapper) against the plain version on one
+    mesh's tree, rays moved to object space by the inverse world ``inv``
+    (inside the kernel; with torch ops in the plain version)."""
+    from raytracedggx_tpu_torch.ops.traverse_cuda import trace_stream_plain
+
+    def kern(stats=None):
+        return kernel(tree, o, d, t_min, t_max, inv, stats)
+
+    def plain():
+        return trace_stream_plain(tree.tris, o, d, t_min, t_max, inv)
+
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    err = hold_hits(name, (got[0], got[3], None), (ref[0], ref[3], None),
+                    t_max)
+    stats = torch.zeros(2, dtype=torch.int64, device=o.device)
+    kern(stats)
+    bound_ms, bound_by = trace_bound((tree.nodes, tree.tris, inv, o, d, t_max),
+                                     o.shape[0], 16, stats)
+    ms, plain_ms = time_pair(name, kern, plain)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
+def scene_loop_check(name, trees, scene_fn, tlas, o, d, t_max):
+    """The per-instance loop (trace_scene_flat / trace_scene4) with the
+    kernel against the same loop over the plain version."""
+    def run(impl):
+        return scene_fn(trees, tlas, o, d, 0.0, t_max, impl=impl)
+
+    got, ref = run("cuda"), run("xla")
+    torch.cuda.synchronize()
+    err = hold_hits(name, (got.t, got.prim, got.inst),
+                    (ref.t, ref.prim, ref.inst), t_max)
+    time_pair(name, lambda: run("cuda"), lambda: run("xla"))
+    return err
+
+
+def valid_taps(width, height):
+    """In-image taps of one horizontal 33-tap pass over width x height."""
+    x = np.arange(width)
+    per_x = np.minimum(x + 16, width - 1) - np.maximum(x - 16, 0) + 1
+    return int(per_x.sum()) * height
 
 
 def spatial_check(aux_out, width, height):
     """K2 and K3 against their plain versions on a frame's G-buffers,
-    both axes; returns {name: (max_abs_err, ms, plain_ms)}."""
+    both axes; returns {name: dict(max_abs_err, ms, plain_ms, bound)}."""
     from raytracedggx_tpu_torch.denoise import tm
     from raytracedggx_tpu_torch.ops.spatial_cuda import (
         diffuse_pass, diffuse_pass_plain, reflection_pass,
@@ -257,17 +362,20 @@ def spatial_check(aux_out, width, height):
     gate = hit & (metal[..., None] < 1.0)
     check(bool(gate.any()), "the frame has live diffuse pixels for K3")
     res = {}
+    # fp32 operations per in-image tap, counted in csrc/spatial.cu: normal
+    # dot 11, depth weight 5, accumulate 7; K2 adds the Gaussian 5,
+    # roughness weight 10, hit gate 1 and pow 7, K3 its gate 2 and pow 5
     cases = {
-        "K2": (tm(aux_out["refl"]).contiguous(), hit,
+        "K2": (tm(aux_out["refl"]).contiguous(), hit, rough, 46,
                lambda s, ax: reflection_pass(s, normal, rough, depth, width,
                                              height, ax),
                lambda s, ax: reflection_pass_plain(s, normal, rough, depth,
                                                    width, height, ax)),
-        "K3": (tm(aux_out["diff"]).contiguous(), gate,
+        "K3": (tm(aux_out["diff"]).contiguous(), gate, metal, 30,
                lambda s, ax: diffuse_pass(s, normal, metal, depth, ax),
                lambda s, ax: diffuse_pass_plain(s, normal, metal, depth, ax)),
     }
-    for name, (src, mask, kern, plain) in cases.items():
+    for name, (src, mask, aux, tap_ops, kern, plain) in cases.items():
         h_ref = plain(src, 1)
         h_src = torch.where(mask, h_ref, 0.0).contiguous()
         errs = []
@@ -278,14 +386,82 @@ def spatial_check(aux_out, width, height):
             errs.append(float(err.max()))
             check(ok, f"{name} axis {ax}: atol 2e-5 rtol 1e-4 (max err "
                   f"{errs[-1]:.3e})")
-        ms = plain_ms = None
-        if src.is_cuda:
-            ms = cuda_ms(lambda: kern(src, 1), 20)
-            plain_ms = cuda_ms(lambda: plain(src, 1), 5)
-            print(f"  {name} one pass: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms")
-        res[name] = (max(errs), ms, plain_ms)
+        ms, plain_ms = time_pair(f"{name} one pass", lambda: kern(src, 1),
+                                 lambda: plain(src, 1), plain_reps=5)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (src, normal, aux, depth, src))
+        bound_ms, bound_by = bound(nbytes, tap_ops * valid_taps(width,
+                                                                height))
+        res[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
     return res
+
+
+# ---------------------------------------------------------------- phase 4
+def counters():
+    """The launch counters of K1..K5, in that order."""
+    from raytracedggx_tpu_torch.ops.fused import trace_tiles_instanced
+    from raytracedggx_tpu_torch.ops.spatial_cuda import (diffuse_pass,
+                                                         reflection_pass)
+    from raytracedggx_tpu_torch.ops.traverse_cuda import trace_tiles_flat
+    from raytracedggx_tpu_torch.ops.wide import trace_tiles4
+
+    return (trace_tiles_instanced, reflection_pass, diffuse_pass,
+            trace_tiles_flat, trace_tiles4)
+
+
+def drive_path(renderer, label, timed, metal_frames, per_frame,
+               per_frame_metal, card):
+    """One path at its config: 3 warm-up frames, then ``timed`` frames and
+    ``metal_frames`` at metallic 0.5 between CUDA events, with every
+    launch count set to 0 just before and read just after.  per_frame:
+    the expected K1..K5 launches per frame of each part."""
+    state = renderer.init_state()
+    for _ in range(3):
+        state, frame, aux = renderer.step(state)
+    hit = aux["normal"][..., 3] > 0.5
+    metal = aux["rough_metal"][..., 1]
+    rays = W * H + int(hit.sum()) + int((hit & (metal < 1.0)).sum())
+    torch.cuda.synchronize()
+    fns = counters()
+    for fn in fns:
+        fn.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(timed):
+        state, frame, _ = renderer.step(state)
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / timed
+    counts = [fn.launches for fn in fns]
+    print(f"  {label}: {ms:.4f} ms/frame, {rays} live rays/frame, "
+          f"{rays / ms / 1e3:.4f} Mrays/s over {timed} frames ({card})")
+    f = frame.float()
+    check(bool(torch.isfinite(f).all()) and float(f.std()) > 1e-3,
+          f"{label}: frame finite and not constant (std {float(f.std()):.4f})")
+    check(counts == [n * timed for n in per_frame],
+          f"{label}: launches K1..K5 {counts} = {per_frame} per frame")
+
+    for mesh_idx in (0, 1):
+        renderer.set_metallic(mesh_idx, 0.5)
+    start.record()
+    for _ in range(metal_frames):
+        state, frame, _ = renderer.step(state)
+    end.record()
+    end.synchronize()
+    ms_metal = start.elapsed_time(end) / metal_frames
+    total = [fn.launches for fn in fns]
+    delta = [a - b for a, b in zip(total, counts)]
+    print(f"  {label} metallic 0.5: {ms_metal:.4f} ms/frame over "
+          f"{metal_frames} frames ({card})")
+    f = frame.float()
+    check(bool(torch.isfinite(f).all()) and float(f.std()) > 1e-3,
+          f"{label}: metallic 0.5 frame finite and not constant")
+    check(delta == [n * metal_frames for n in per_frame_metal],
+          f"{label}: launches K1..K5 {delta} = {per_frame_metal} per frame "
+          f"at metallic 0.5")
+    return dict(ms=ms, ms_metal=ms_metal, rays=rays, launches=total)
 
 
 # ---------------------------------------------------------------- phase 5
@@ -311,7 +487,10 @@ def read_png(path):
     return raw[:, 1:].reshape(h, w, 3).astype(np.float32) / 255.0
 
 
-def golden_check(device):
+def golden_check(device, traversal="auto", ndc_fmt=False):
+    """3 frames of the 96x54 cube scene against the JAX package's PNG:
+    the default frame (mean < 3e-3), or bary_mode="ndc" with
+    emulate_formats (tests/test_golden.py:174-176)."""
     from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
     from raytracedggx_tpu_torch.scene import Scene, default_materials, \
         ground_cube
@@ -319,17 +498,22 @@ def golden_check(device):
     scene = Scene(meshes=[ground_cube(), ground_cube()],
                   materials=default_materials(),
                   pos_scale=np.array([0, 3.0, 0, 1.0], np.float32))
-    r = Renderer(scene, config=RenderConfig(width=96, height=54),
+    extra = dict(bary_mode="ndc", emulate_formats=True) if ndc_fmt else {}
+    r = Renderer(scene, config=RenderConfig(width=96, height=54,
+                                            traversal=traversal, **extra),
                  device=device)
     state, frame = r.run_frames(3)
     got = frame.clamp(0, 1).cpu().numpy()
-    diff = np.abs(got - read_png(GOLDEN))
+    diff = np.abs(got - read_png(GOLDEN_NDC_FMT if ndc_fmt else GOLDEN))
     mean = float(diff.mean())
     frac = float((diff.max(axis=-1) > 0.05).mean())
-    print(f"  golden 96x54 f3: mean {mean:.6f}, max {float(diff.max()):.6f},"
-          f" pixels > 0.05: {frac:.6f}")
-    check(mean < 3e-3, "golden mean diff < 3e-3")
-    check(frac < 2e-3, "golden: fewer than 0.2% of pixels off by > 0.05")
+    label = (f"golden 96x54 f3{' ndc+formats' if ndc_fmt else ''} "
+             f"({traversal})")
+    print(f"  {label}: mean {mean:.6f}, max {float(diff.max()):.6f}, "
+          f"pixels > 0.05: {frac:.6f}")
+    check(mean < (2e-3 if ndc_fmt else 3e-3),
+          f"{label}: mean diff < {'2e-3' if ndc_fmt else '3e-3'}")
+    check(frac < 2e-3, f"{label}: fewer than 0.2% of pixels off by > 0.05")
     check(state.history.dtype == torch.float16, "TAA history stays f16")
 
 
@@ -346,10 +530,14 @@ def main():
     build_secs = build_kernels()
 
     print("== phase 2: scene")
+    from raytracedggx_tpu_torch.bvh import build_tlas
     from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
-    from raytracedggx_tpu_torch.ops.fused import trace_tiles_instanced
-    from raytracedggx_tpu_torch.ops.spatial_cuda import (diffuse_pass,
-                                                         reflection_pass)
+    from raytracedggx_tpu_torch.ops.scene_wide import trace_scene_wide_fused
+    from raytracedggx_tpu_torch.ops.traverse_cuda import (inv_rows,
+                                                          trace_scene_flat,
+                                                          trace_tiles_flat)
+    from raytracedggx_tpu_torch.ops.wide import trace_scene4, trace_tiles4
+    from raytracedggx_tpu_torch.trace.geometry import upload_scene
 
     t0 = time.perf_counter()
     scene = model_scene()
@@ -360,6 +548,19 @@ def main():
           f"{sw.tris.shape[0] // sw.leaf_size}, nodes {sw.num_nodes}, "
           f"stack {sw.stack}, L {sw.leaf_size}; renderer set-up "
           f"{time.perf_counter() - t0:.3f} s")
+    per_mesh = {}
+    for trav in ("pallas4", "pallas"):
+        t0 = time.perf_counter()
+        per_mesh[trav] = Renderer(scene, config=RenderConfig(traversal=trav),
+                                  device=dev)
+        torch.cuda.synchronize()
+        print(f"  traversal={trav!r} renderer set-up "
+              f"{time.perf_counter() - t0:.3f} s")
+    model = scene.mesh_ids.index(1)
+    flat = per_mesh["pallas"].geom.flat[1]
+    wide = per_mesh["pallas4"].geom.wide[1]
+    print(f"  model mesh at leaf 8: FlatBVH {flat.num_nodes} nodes; "
+          f"WideBVH {wide.num_nodes} supernodes, stack bound {wide.stack}")
 
     print("== phase 3: kernels against their plain versions")
     rng = np.random.default_rng(1234)
@@ -372,86 +573,97 @@ def main():
     o = torch.cat([o_r, o_f[pick]]).contiguous()
     d = torch.cat([d_r, d_f[pick]]).contiguous()
     t_max = torch.cat([t_r, t_f[pick]]).contiguous()
-    k1_err, k1_ms, k1_plain_ms = k1_check("model scene", sw0, o, d, t_max)
+    res = {"K1": k1_check("model scene", sw0, o, d, t_max)}
     o9, d9 = rand_rays(rng, K1_RAYS, dev)
     t9 = torch.where(torch.arange(K1_RAYS, device=dev) % 2 == 0, 1e4, -1.0)
-    k1_check("9-instance scene", scene_bvh(nested_scene(), 1.3, dev), o9, d9,
-             t9)
+    nested = nested_scene()
+    k1_check("9-instance scene", scene_bvh(nested, 1.3, dev), o9, d9, t9)
+
+    # K4/K5: 8,192 primary and 8,192 reflection rays of the "wide" frame,
+    # in the model instance's object space, at the reflection wave's
+    # t_min.  The model covers a small part of the frame, so up to half of
+    # each set are rays that K1 finds on the model, the rest are drawn
+    # from the whole set; every other ray of each set is dead.
+    n_prim, half = o_f.shape[0] // 2, K1_RAYS // 2
+    inst_f = trace_scene_wide_fused(sw0, o_f, d_f, 0.0, t_f)[0].inst
+
+    def draw(idx, k):
+        return idx[torch.as_tensor(rng.choice(idx.numel(), k, replace=False),
+                                   device=dev)]
+
+    parts = []
+    for lo in (0, n_prim):
+        idx = torch.arange(lo, lo + n_prim, device=dev)
+        on_model = inst_f[lo:lo + n_prim] == model
+        k = min(int(on_model.sum()), half // 2)
+        parts += [draw(idx[on_model], k), draw(idx[~on_model], half - k)]
+        print(f"  {'reflection' if lo else 'primary'} set: {k} rays on the "
+              f"model, {half - k} drawn from the rest")
+    pick = torch.cat(parts)
+    alive = torch.arange(K1_RAYS, device=dev) % 2 == 0
+    o_m, d_m = o_f[pick].contiguous(), d_f[pick].contiguous()
+    t_m = torch.where(alive, t_f[pick], -1.0).contiguous()
+    consts = renderer._constants(renderer.init_state(), np.float32(0.0))
+    inv_model = inv_rows(consts.inv_worlds)[model].contiguous()
+    res["K4"] = per_mesh_check("K4 model mesh", flat, trace_tiles_flat, o_m,
+                               d_m, T_MIN_SECONDARY, t_m, inv_model)
+    res["K5"] = per_mesh_check("K5 model mesh", wide, trace_tiles4, o_m,
+                               d_m, T_MIN_SECONDARY, t_m, inv_model)
+    worlds9 = nested.worlds(np.float32(1.3)).to(dev)
+    for trav, key, scene_fn in (("pallas", "flat", trace_scene_flat),
+                                ("pallas4", "wide", trace_scene4)):
+        geom = upload_scene(nested, dev, traversal=trav, leaf_size=8)
+        tlas = build_tlas(geom.bounds, worlds9, nested.mesh_ids)
+        scene_loop_check(f"{'K4' if trav == 'pallas' else 'K5'} 9-instance "
+                         f"scene loop", getattr(geom, key), scene_fn, tlas,
+                         o9, d9, t9)
 
     rm = Renderer(scene, device=dev)
     for mesh_idx in (0, 1):
         rm.set_metallic(mesh_idx, 0.5)
     _, _, aux = rm.step(rm.init_state())
-    spatial = spatial_check(aux, W, H)
+    res.update(spatial_check(aux, W, H))
     del rm, aux
 
-    print("== phase 4: main path, 1280x720")
-    state = renderer.init_state()
-    for _ in range(3):
-        state, frame, aux = renderer.step(state)
-    hit = aux["normal"][..., 3] > 0.5
-    metal = aux["rough_metal"][..., 1]
-    rays = W * H + int(hit.sum()) + int((hit & (metal < 1.0)).sum())
-    torch.cuda.synchronize()
-    counters = (trace_tiles_instanced, reflection_pass, diffuse_pass)
-    for fn in counters:
-        fn.launches = 0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(TIMED_FRAMES):
-        state, frame, _ = renderer.step(state)
-    end.record()
-    end.synchronize()
-    ms = start.elapsed_time(end) / TIMED_FRAMES
-    counts = [fn.launches for fn in counters]
-    print(f"  {ms:.4f} ms/frame, {rays} live rays/frame, "
-          f"{rays / ms / 1e3:.4f} Mrays/s over {TIMED_FRAMES} frames "
-          f"({card})")
-    f = frame.float()
-    check(bool(torch.isfinite(f).all()) and float(f.std()) > 1e-3,
-          f"frame finite and not constant (std {float(f.std()):.4f})")
-    check(counts == [2 * TIMED_FRAMES, 2 * TIMED_FRAMES, 0],
-          f"launches K1/K2/K3 {counts} = 2/2/0 per frame")
-
-    for mesh_idx in (0, 1):
-        renderer.set_metallic(mesh_idx, 0.5)
-    start.record()
-    for _ in range(METAL_FRAMES):
-        state, frame, _ = renderer.step(state)
-    end.record()
-    end.synchronize()
-    ms_metal = start.elapsed_time(end) / METAL_FRAMES
-    total = [fn.launches for fn in counters]
-    delta = [a - b for a, b in zip(total, counts)]
-    print(f"  metallic 0.5: {ms_metal:.4f} ms/frame over {METAL_FRAMES} "
-          f"frames ({card})")
-    check(bool(torch.isfinite(frame).all()), "metallic 0.5 frame finite")
-    check(delta == [3 * METAL_FRAMES, 2 * METAL_FRAMES, 2 * METAL_FRAMES],
-          f"launches K1/K2/K3 {delta} = 3/2/2 per frame at metallic 0.5")
+    print("== phase 4: paths at 1280x720")
+    runs = {"wide": drive_path(renderer, "wide", TIMED_FRAMES, METAL_FRAMES,
+                               [2, 2, 0, 0, 0], [3, 2, 2, 0, 0], card)}
+    runs["pallas4"] = drive_path(per_mesh["pallas4"], "pallas4",
+                                 PER_MESH_TIMED, PER_MESH_METAL,
+                                 [0, 2, 0, 0, 4], [0, 2, 2, 0, 6], card)
+    runs["pallas"] = drive_path(per_mesh["pallas"], "pallas",
+                                PER_MESH_TIMED, PER_MESH_METAL,
+                                [0, 2, 0, 4, 0], [0, 2, 2, 6, 0], card)
 
     print("== phase 5: golden cube scene")
     golden_check(dev)
+    for trav in ("pallas4", "pallas"):
+        golden_check(dev, trav, ndc_fmt=True)
 
-    kernels = [
-        dict(name="K1 trace_tiles_instanced", route="cuda",
-             source="raytracedggx_tpu_torch/csrc/traverse.cu",
-             replaces="raytracedggx_tpu/ops/fused.py:216",
-             launches=total[0], max_abs_err=k1_err, ms=k1_ms,
-             plain_ms=k1_plain_ms),
-        dict(name="K2 reflection_pass", route="cuda",
-             source="raytracedggx_tpu_torch/csrc/spatial.cu",
-             replaces="raytracedggx_tpu/ops/spatial_pallas.py:35",
-             launches=total[1], max_abs_err=spatial["K2"][0],
-             ms=spatial["K2"][1], plain_ms=spatial["K2"][2]),
-        dict(name="K3 diffuse_pass", route="cuda",
-             source="raytracedggx_tpu_torch/csrc/spatial.cu",
-             replaces="raytracedggx_tpu/ops/spatial_pallas.py:77",
-             launches=total[2], max_abs_err=spatial["K3"][0],
-             ms=spatial["K3"][1], plain_ms=spatial["K3"][2]),
+    # launches: each kernel's count over its own path's run (K1-K3: "wide")
+    meta = [
+        ("K1 trace_tiles_instanced", "csrc/traverse.cu",
+         "raytracedggx_tpu/ops/fused.py:216", runs["wide"]["launches"][0]),
+        ("K2 reflection_pass", "csrc/spatial.cu",
+         "raytracedggx_tpu/ops/spatial_pallas.py:35",
+         runs["wide"]["launches"][1]),
+        ("K3 diffuse_pass", "csrc/spatial.cu",
+         "raytracedggx_tpu/ops/spatial_pallas.py:77",
+         runs["wide"]["launches"][2]),
+        ("K4 trace_tiles_flat", "csrc/traverse_flat.cu",
+         "raytracedggx_tpu/ops/traverse_pallas.py:40",
+         runs["pallas"]["launches"][3]),
+        ("K5 trace_tiles4", "csrc/traverse_wide4.cu",
+         "raytracedggx_tpu/ops/wide.py:166", runs["pallas4"]["launches"][4]),
     ]
-    print(f"build {build_secs:.3f} s; main path {ms:.4f} ms/frame; "
-          f"metallic 0.5 {ms_metal:.4f} ms/frame; {card}")
+    kernels = [dict(name=name, route="cuda",
+                    source=f"raytracedggx_tpu_torch/{src}", replaces=rep,
+                    launches=n, **res[name.split()[0]], library_ms=None)
+               for name, src, rep, n in meta]
+    print(f"build {build_secs:.3f} s; "
+          + "; ".join(f"{k} {v['ms']:.4f} ms/frame, metallic 0.5 "
+                      f"{v['ms_metal']:.4f} ms/frame"
+                      for k, v in runs.items()) + f"; {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,7 @@
 //   * outputs t (t_max on a miss), u, v (0 on a miss), slot = leaf*L + k
 //     and inst = tag-1 as int32 (-1 on a miss).  Rays with t_max < 0 are
 //     dead and return at once.
+//   * stats (null, or 2 int64): child box tests and triangle tests, summed.
 //
 // What bounds it on this card: latency of dependent loads.  Each step of
 // a ray pops a node (144 B) and, at leaves, streams 9*L floats; the
@@ -39,37 +40,13 @@
 
 #include <cuda_runtime.h>
 
+#include "ray.cuh"
+
 #define K1_MAX_STACK 256
 #define K1_TAG_SHIFT 20
 #define K1_NODE_MASK 0xFFFFF
 
 namespace {
-
-struct ObjRay {
-  float ox, oy, oz, dx, dy, dz, ix, iy, iz;
-};
-
-__device__ __forceinline__ float safe_inv(float d) {
-  const float eps = 1e-20f;
-  if (fabsf(d) < eps) d = d >= 0.0f ? eps : -eps;
-  return 1.0f / d;
-}
-
-__device__ __forceinline__ ObjRay to_object(const float* __restrict__ m,
-                                            float wox, float woy, float woz,
-                                            float wdx, float wdy, float wdz) {
-  ObjRay r;
-  r.ox = wox * __ldg(m + 0) + woy * __ldg(m + 3) + woz * __ldg(m + 6) + __ldg(m + 9);
-  r.oy = wox * __ldg(m + 1) + woy * __ldg(m + 4) + woz * __ldg(m + 7) + __ldg(m + 10);
-  r.oz = wox * __ldg(m + 2) + woy * __ldg(m + 5) + woz * __ldg(m + 8) + __ldg(m + 11);
-  r.dx = wdx * __ldg(m + 0) + wdy * __ldg(m + 3) + wdz * __ldg(m + 6);
-  r.dy = wdx * __ldg(m + 1) + wdy * __ldg(m + 4) + wdz * __ldg(m + 7);
-  r.dz = wdx * __ldg(m + 2) + wdy * __ldg(m + 5) + wdz * __ldg(m + 8);
-  r.ix = safe_inv(r.dx);
-  r.iy = safe_inv(r.dy);
-  r.iz = safe_inv(r.dz);
-  return r;
-}
 
 __global__ void __launch_bounds__(128)
 trace_instanced_kernel(const float* __restrict__ nodes,
@@ -81,26 +58,28 @@ trace_instanced_kernel(const float* __restrict__ nodes,
                        int n_rays, int L, int stack_size,
                        float* __restrict__ out_t, float* __restrict__ out_u,
                        float* __restrict__ out_v, int* __restrict__ out_slot,
-                       int* __restrict__ out_inst) {
+                       int* __restrict__ out_inst,
+                       unsigned long long* __restrict__ stats) {
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   if (r >= n_rays) return;
   const float wox = ray_o[3 * r], woy = ray_o[3 * r + 1], woz = ray_o[3 * r + 2];
   const float wdx = ray_d[3 * r], wdy = ray_d[3 * r + 1], wdz = ray_d[3 * r + 2];
   float best_t = t_max[r], best_u = 0.0f, best_v = 0.0f;
   int best_slot = -1, best_inst = -1;
+  unsigned long long n_box = 0, n_tri = 0;
 
   if (best_t >= 0.0f) {  // t_max < 0: dead ray, no traversal
     int stack[K1_MAX_STACK];
     int sp = 0;
     stack[sp++] = 0;  // root of the top tree, tag 0
     int cur_tag = -1;
-    ObjRay ro;
+    rtggx::Ray ro;
     while (sp > 0) {
       const int e = stack[--sp];
       const int idx = e & K1_NODE_MASK;
       const int tag = e >> K1_TAG_SHIFT;
       if (tag != cur_tag) {
-        ro = to_object(inv_mats + 12 * tag, wox, woy, woz, wdx, wdy, wdz);
+        ro = rtggx::make_ray(inv_mats + 12 * tag, wox, woy, woz, wdx, wdy, wdz);
         cur_tag = tag;
       }
       const float* __restrict__ nd = nodes + (size_t)idx * 36;
@@ -110,44 +89,19 @@ trace_instanced_kernel(const float* __restrict__ nodes,
       for (int k = 0; k < 4; ++k) {
         const int kind = (int)__ldg(nd + 24 + k);
         if (kind == 0) continue;
-        const float* b = nd + 6 * k;
-        const float t0x = (__ldg(b + 0) - ro.ox) * ro.ix;
-        const float t1x = (__ldg(b + 3) - ro.ox) * ro.ix;
-        const float t0y = (__ldg(b + 1) - ro.oy) * ro.iy;
-        const float t1y = (__ldg(b + 4) - ro.oy) * ro.iy;
-        const float t0z = (__ldg(b + 2) - ro.oz) * ro.iz;
-        const float t1z = (__ldg(b + 5) - ro.oz) * ro.iz;
-        const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-        const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-        if (!((tn <= tf) && (tf >= t_min) && (tn <= best_t))) continue;
+        ++n_box;
+        float tn;
+        if (!rtggx::box_hit(nd + 6 * k, ro, t_min, best_t, tn)) continue;
         const int a = (int)__ldg(nd + 28 + k);
         if (kind == 1) {
           const float* __restrict__ leaf = tris + (size_t)a * L * 9;
           for (int j = 0; j < L; ++j) {
             const float* tr = leaf + 9 * j;
-            const float v0x = __ldg(tr + 0);
             // build_records4_padded fills a leaf's real triangles first,
             // then its NaN padding: the first pad ends the leaf
-            if (v0x != v0x) break;
-            const float v0y = __ldg(tr + 1), v0z = __ldg(tr + 2);
-            const float e1x = __ldg(tr + 3), e1y = __ldg(tr + 4), e1z = __ldg(tr + 5);
-            const float e2x = __ldg(tr + 6), e2y = __ldg(tr + 7), e2z = __ldg(tr + 8);
-            const float px = ro.dy * e2z - ro.dz * e2y;
-            const float py = ro.dz * e2x - ro.dx * e2z;
-            const float pz = ro.dx * e2y - ro.dy * e2x;
-            const float det = e1x * px + e1y * py + e1z * pz;
-            const float inv_det = 1.0f / det;
-            const float tx = ro.ox - v0x, ty = ro.oy - v0y, tz = ro.oz - v0z;
-            const float u = (tx * px + ty * py + tz * pz) * inv_det;
-            const float qx = ty * e1z - tz * e1y;
-            const float qy = tz * e1x - tx * e1z;
-            const float qz = tx * e1y - ty * e1x;
-            const float v = (ro.dx * qx + ro.dy * qy + ro.dz * qz) * inv_det;
-            const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-            if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= t_min && t <= best_t) {
-              best_t = t;
-              best_u = u;
-              best_v = v;
+            if (isnan(__ldg(tr))) break;
+            ++n_tri;
+            if (rtggx::tri_hit(tr, ro, t_min, best_t, best_u, best_v)) {
               best_slot = a * L + j;
               best_inst = tag - 1;
             }
@@ -176,6 +130,10 @@ trace_instanced_kernel(const float* __restrict__ nodes,
   out_v[r] = best_v;
   out_slot[r] = best_slot;
   out_inst[r] = best_inst;
+  if (stats != nullptr) {
+    atomicAdd(stats, n_box);
+    atomicAdd(stats + 1, n_tri);
+  }
 }
 
 }  // namespace
@@ -186,7 +144,8 @@ extern "C" int rtggx_trace_instanced(const void* nodes, const void* tris,
                                      float t_min, int n_rays, int leaf_size,
                                      int stack_size, void* out_t, void* out_u,
                                      void* out_v, void* out_slot,
-                                     void* out_inst, void* stream) {
+                                     void* out_inst, void* stats,
+                                     void* stream) {
   if (n_rays <= 0) return 0;
   if (stack_size > K1_MAX_STACK) stack_size = K1_MAX_STACK;
   const int threads = 128;
@@ -195,7 +154,8 @@ extern "C" int rtggx_trace_instanced(const void* nodes, const void* tris,
       (const float*)nodes, (const float*)tris, (const float*)inv_mats,
       (const float*)ray_o, (const float*)ray_d, (const float*)t_max, t_min,
       n_rays, leaf_size, stack_size, (float*)out_t, (float*)out_u,
-      (float*)out_v, (int*)out_slot, (int*)out_inst);
+      (float*)out_v, (int*)out_slot, (int*)out_inst,
+      (unsigned long long*)stats);
   return (int)cudaGetLastError();
 }
 

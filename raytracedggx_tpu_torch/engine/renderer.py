@@ -1,7 +1,13 @@
 """Frame orchestration: the RayTracedGGX app loop, one frame per ``step``.
 
-Torch port of raytracedggx_tpu/engine/renderer.py on its default
-accelerator path (``traversal="wide"``, the fused instanced traversal).
+Torch port of raytracedggx_tpu/engine/renderer.py.  ``traversal``:
+"wide" (and "auto") is the fused instanced traversal, kernel K1, one
+launch per wave; "pallas" (kernel K4, DFS with skip links) and "pallas4"
+(kernel K5, 4-wide with a stack) trace each instance's mesh BVH in its
+object space, one launch per instance and wave; "jax" is the plain
+wavefront traversal over the per-mesh LBVHs.  The per-mesh paths shade
+from the hit triangle's vertices, as the reference's ``trace_fn`` route
+does; ``bary_mode="ndc"`` takes that route on every traversal.
 Per frame (RayTracer::UpdateFrame, RayTracer.cpp:250-305):
 
 - advance the model rotation 16 deg/s * dt (RayTracer.cpp:270-272);
@@ -13,14 +19,18 @@ Per frame (RayTracer::UpdateFrame, RayTracer.cpp:250-305):
   tone map.
 
 The small per-frame matrices are computed on the CPU and copied to the
-device; everything per pixel runs on ``device``.  ``kernels``: "auto"
-launches the CUDA kernels (K1, K2, K3) for CUDA tensors and their plain
-versions for CPU tensors, "cuda" requires a CUDA device, "xla" uses the
-plain versions everywhere.  Not ported yet: the reference's
-``async_compute``, ``set_kernels``, ``emulate_formats``, the ``cam``
-override of ``step``, the sharded ``valid`` mask, and ``step_n`` as one
-captured program (here a Python loop).  The reference's VMEM-budget
-fallback to per-mesh launches is a TPU residency limit and is dropped.
+device; everything per pixel runs on ``device``, the CUDA card unless
+the caller passes ``device="cpu"`` (with no CUDA device the constructor
+raises; it never falls back to the CPU).  ``kernels``: "auto" launches
+the CUDA kernels (K1-K5) for CUDA tensors and their plain versions for
+CPU tensors, "cuda" requires a CUDA device, "xla" uses the plain
+versions everywhere.  ``emulate_formats`` round-trips the G-buffers and
+the denoiser's targets through the reference's storage formats.  Not
+ported yet: the reference's ``async_compute``, ``set_kernels``, the
+``cam`` override of ``step``, the sharded ``valid`` mask, and ``step_n``
+as one captured program (here a Python loop).  The reference's
+VMEM-budget fallback from "wide" to per-mesh launches is a TPU residency
+limit and is dropped.
 """
 
 from __future__ import annotations
@@ -38,12 +48,16 @@ from ..denoise import (diffuse_spatial_filter, reflection_spatial_filter,
 from ..ops.ordering import make_block_order
 from ..ops.scene_wide import (build_scene_wide, refit_scene_wide,
                               trace_scene_wide_fused)
+from ..ops.traverse_cuda import trace_scene_flat
+from ..ops.wide import trace_scene4
 from ..post import tone_map
 from ..scene.camera import Camera
 from ..sh import project_sh9
 from ..trace.env import EnvMap, procedural_env
 from ..trace.geometry import upload_scene
-from ..trace.raygen import FrameConstants, MaterialsDev, ray_trace_pass
+from ..trace.raygen import (FrameConstants, MaterialsDev, default_tracer,
+                            ray_trace_pass)
+from ..utils.formats import quantize_f16, quantize_r11g11b10, quantize_unorm
 from ..utils.halton import halton_table
 
 ANIM_SPEED = 16.0 * math.pi / 180.0   # 16 deg/s (RayTracer.cpp:271)
@@ -55,11 +69,17 @@ RNG_FRAMES = 256                      # FrameIndex mod (RayTracer.cpp:295)
 class RenderConfig:
     width: int = 1280
     height: int = 720
+    bary_mode: str = "direct"       # or "ndc" (reference reconstruction)
     spatial: bool = True            # spatial filters on/off
     temporal: bool = True           # TAA accumulate on/off
+    emulate_formats: bool = False   # round-trip reference storage precision
     kernels: str = "auto"           # "auto" | "xla" | "cuda"
-    traversal: str = "auto"         # "auto" | "wide" (both: fused K1)
+    traversal: str = "auto"         # "auto" (= "wide", K1) | "wide" |
+                                    # "pallas4" (K5) | "pallas" (K4) | "jax"
+    leaf_size: int = 8              # per-mesh tree leaf size (K4, K5)
     wide_leaf_size: int = 64        # scene BVH leaf size (stream slots)
+    sort_secondary: bool = True     # dead|octant|Morton order for bounce
+                                    # waves (kernel traversals only)
 
 
 class RenderState(NamedTuple):
@@ -73,13 +93,15 @@ class RenderState(NamedTuple):
 class Renderer:
     def __init__(self, scene, camera: Camera | None = None,
                  env: EnvMap | None = None,
-                 config: RenderConfig | None = None, device="cpu"):
+                 config: RenderConfig | None = None, device="cuda"):
         self.config = cfg = config or RenderConfig()
         self.device = dev = torch.device(device)
-        if cfg.traversal not in ("auto", "wide"):
-            raise NotImplementedError(
-                f"traversal={cfg.traversal!r}: only the fused 'wide' "
-                f"traversal is ported")
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to "
+                               "render with the plain torch versions")
+        self.traversal = "wide" if cfg.traversal == "auto" else cfg.traversal
+        if self.traversal not in ("wide", "pallas4", "pallas", "jax"):
+            raise ValueError(f"traversal={cfg.traversal!r}")
         if cfg.kernels not in ("auto", "xla", "cuda"):
             raise ValueError(f"kernels={cfg.kernels!r}")
         if cfg.kernels == "cuda" and dev.type != "cuda":
@@ -89,11 +111,17 @@ class Renderer:
         self.camera = camera or Camera(width=cfg.width, height=cfg.height)
         self.camera.width, self.camera.height = cfg.width, cfg.height
         self.env = env if env is not None else procedural_env(64, dev)
-        self.geom = upload_scene(scene, dev)
-        self.swide = build_scene_wide(self.geom, scene.mesh_ids,
-                                      leaf_size=cfg.wide_leaf_size,
-                                      device=dev)
-        self.ray_order = make_block_order(cfg.width, cfg.height, dev)
+        self.geom = upload_scene(scene, dev, traversal=self.traversal,
+                                 leaf_size=cfg.leaf_size)
+        self.swide = None
+        if self.traversal == "wide":
+            self.swide = build_scene_wide(self.geom, scene.mesh_ids,
+                                          leaf_size=cfg.wide_leaf_size,
+                                          device=dev)
+        # screen-block order for the kernel traversals (warp coherence)
+        self.ray_order = None
+        if self.traversal != "jax":
+            self.ray_order = make_block_order(cfg.width, cfg.height, dev)
 
         # SH projection of the env probe (first-frame TransformSH,
         # RayTracer.cpp:345-350, folded into construction)
@@ -146,8 +174,16 @@ class Renderer:
         cfg = self.config
         refl, diff = out["refl"], out["diff"]
         normal, depth = out["normal"], out["depth"]
-        rough = out["rough_metal"][..., 0].contiguous()
-        metal = out["rough_metal"][..., 1].contiguous()
+        rough_metal, velocity = out["rough_metal"], out["velocity"]
+        if cfg.emulate_formats:
+            refl = quantize_r11g11b10(refl)
+            diff = quantize_r11g11b10(diff)
+            normal = torch.cat([quantize_unorm(normal[..., :3], 10),
+                                quantize_unorm(normal[..., 3:4], 2)], dim=-1)
+            rough_metal = quantize_unorm(rough_metal, 8)
+            velocity = quantize_f16(velocity)
+        rough = rough_metal[..., 0].contiguous()
+        metal = rough_metal[..., 1].contiguous()
         if cfg.spatial:
             flt_rfl = reflection_spatial_filter(refl, normal, rough, depth,
                                                 cfg.width, cfg.height,
@@ -165,8 +201,12 @@ class Renderer:
             hit = normal[..., 3:4]
             comp = torch.where(metal[..., None] < 1.0, refl + diff, refl)
             flt_dff = torch.cat([comp, hit], dim=-1)
-        accum = (temporal_ss(flt_dff, history, out["velocity"])
+        if cfg.emulate_formats:
+            flt_dff = quantize_f16(flt_dff)
+        accum = (temporal_ss(flt_dff, history, velocity)
                  if cfg.temporal else flt_dff)
+        if cfg.emulate_formats:
+            accum = quantize_f16(accum)
         # stored at the history dtype (f16); the tone map reads the same
         # stored values
         accum = accum.to(history.dtype)
@@ -179,21 +219,38 @@ class Renderer:
                            + np.float32(ANIM_SPEED) * np.float32(dt))
         consts = self._constants(state, angle)
         tlas = build_tlas(self.geom.bounds, consts.worlds,
-                          self.scene.mesh_ids)
-        sw = refit_scene_wide(self.swide, consts.worlds)
-
-        def trace_fused(o, d, t_min, t_max):
-            return trace_scene_wide_fused(sw, o, d, t_min, t_max,
-                                          impl=self.impl)
-
+                          self.scene.mesh_ids, inv_worlds=consts.inv_worlds)
         out = ray_trace_pass(tlas, consts, self.materials, self.env,
                              self.sh_coeffs, cfg.width, cfg.height,
-                             trace_fused, ray_order=self.ray_order)
+                             ray_order=self.ray_order,
+                             bary_mode=cfg.bary_mode, geom=self.geom,
+                             sort_secondary=(cfg.sort_secondary
+                                             and self.traversal != "jax"),
+                             **self._tracer(consts))
         accum, frame = self._post_process(out, state.history)
         new_state = RenderState(history=accum,
                                 prev_wvp=consts.world_view_projs,
                                 angle=angle, frame=state.frame + 1)
         return new_state, frame, dict(out, accum=accum)
+
+    def _tracer(self, consts):
+        """The frame's traversal: trace_fused (K1 over the refitted scene
+        BVH) or trace_fn (per-mesh, in each instance's object space)."""
+        if self.traversal == "wide":
+            sw = refit_scene_wide(self.swide, consts.worlds)
+            return dict(trace_fused=lambda o, d, t_min, t_max:
+                        trace_scene_wide_fused(sw, o, d, t_min, t_max,
+                                               impl=self.impl))
+        if self.traversal == "jax":
+            return dict(trace_fn=default_tracer(self.geom))
+        geom, impl = self.geom, self.impl
+        if self.traversal == "pallas":
+            return dict(trace_fn=lambda tlas, o, d, t_min, t_max:
+                        trace_scene_flat(geom.flat, tlas, o, d, t_min, t_max,
+                                         impl=impl))
+        return dict(trace_fn=lambda tlas, o, d, t_min, t_max:
+                    trace_scene4(geom.wide, tlas, o, d, t_min, t_max,
+                                 impl=impl))
 
     def step_n(self, state: RenderState, num_frames: int,
                dt: float = 1 / 60):

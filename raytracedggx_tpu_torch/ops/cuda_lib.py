@@ -1,12 +1,14 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-The kernels have a plain C interface and are bound with ctypes: nvcc
-compiles every source in ``csrc/`` for ``sm_90a`` into one shared library
-under ``raytracedggx_tpu_torch/build/``, named by a hash of the sources
-and flags, at the first launch of any kernel.  Importing this module
-builds and loads nothing, so it imports on machines without nvcc.  No
-``--use_fast_math``: padding triangles rely on NaN comparisons failing,
-and the filters' pow(x, 512) must stay accurate.
+The kernels have a plain C interface and are bound with ctypes: at the
+first launch of any kernel, nvcc compiles every source in ``csrc/`` for
+``sm_90a`` (one nvcc process per source, all started together) and links
+the objects into one shared library under ``raytracedggx_tpu_torch/build/``,
+named by a hash of the sources and flags.  Importing this module builds and
+loads nothing, so it imports on machines without nvcc.  No
+``--use_fast_math``: padding triangles and empty 4-wide child slots rely
+on NaN and infinity comparisons failing, and the filters' pow(x, 512)
+must stay accurate.
 """
 
 from __future__ import annotations
@@ -25,20 +27,30 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                 "-Xptxas=-v", "-c")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
-    # nodes tris inv_mats ray_o ray_d t_max t_min n_rays L stack
-    # out_t out_u out_v out_slot out_inst stream
+    # K1: nodes tris inv_mats ray_o ray_d t_max t_min n_rays L stack
+    # out_t out_u out_v out_slot out_inst stats stream
     "rtggx_trace_instanced": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
-                              _P, _P, _P, _P, _P, _P),
-    # refl axis src normal aux depth out H W width br_max stream
+                              _P, _P, _P, _P, _P, _P, _P),
+    # K2/K3: refl axis src normal aux depth out H W width br_max stream
     "rtggx_spatial_pass": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
+    # K4: nodes num_nodes tris inv ray_o ray_d t_max t_min n_rays
+    # out_t out_u out_v out_pos stats stream
+    "rtggx_trace_flat": (_P, _I, _P, _P, _P, _P, _P, _F, _I,
+                         _P, _P, _P, _P, _P, _P),
+    # K5: nodes tris inv ray_o ray_d t_max t_min n_rays
+    # out_t out_u out_v out_pos stats stream
+    "rtggx_trace_wide4": (_P, _P, _P, _P, _P, _P, _F, _I,
+                          _P, _P, _P, _P, _P, _P),
     "rtggx_k1_max_stack": (),
+    "rtggx_k5_max_stack": (),
 }
 
 
@@ -47,8 +59,8 @@ def _sources():
 
 
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):      # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"librtggx_kernels_{h.hexdigest()[:16]}.so"
@@ -70,17 +82,41 @@ def build() -> tuple[Path, str, float]:
     if out.exists():
         return out, log.read_text() if log.exists() else "", 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in _sources():
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *COMPILE_FLAGS, "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    texts, failed = [], []
+    for cmd, _, proc in jobs:         # wait for every compiler process
+        text = proc.communicate()[0]
+        texts.append(text)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{text}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = BUILD_DIR / f"{tag}.so.tmp"
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *map(str, objs)]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}"
+                               f"{res.stderr}")
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     secs = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    log.write_text(res.stdout + res.stderr)
+    text = "".join(texts)
+    log.write_text(text)
     os.replace(tmp, out)          # atomic: concurrent builds agree
-    return out, res.stdout + res.stderr, secs
+    return out, text, secs
 
 
 @functools.lru_cache(maxsize=None)
@@ -103,3 +139,20 @@ def check_launch(err: int, name: str) -> None:
 def stream_handle(device) -> int:
     """PyTorch's current stream on ``device``, as the kernels take it."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def pointer(t) -> int | None:
+    """A tensor's device address, or None (NULL) for no tensor."""
+    return None if t is None else t.data_ptr()
+
+
+def require(name, t, shape, dtype, device):
+    """Raise unless t is a contiguous ``dtype`` tensor on ``device`` whose
+    shape matches ``shape`` (None matches any extent)."""
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
+                         f"{device}, got {t.dtype} on {t.device}")
+    if len(shape) != t.dim() or any(s is not None and s != n
+                                   for s, n in zip(shape, t.shape)):
+        raise ValueError(f"{name}: need shape {shape}, got "
+                         f"{tuple(t.shape)}")

@@ -21,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .cuda_lib import check_launch, load_library, stream_handle
+from .cuda_lib import (check_launch, load_library, pointer, require,
+                       stream_handle)
 
 
 def build_records4_padded(bvh, leaf_size: int = 8, compact: bool = True):
@@ -211,32 +212,24 @@ def trace_instanced_plain(tris, inv_mats, inst_slots, ray_o, ray_d, t_min,
     return best_t, best_u, best_v, best_slot, best_inst
 
 
-def _require(name, t, shape, dtype, device):
-    if t.device != device or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(f"{name}: need a contiguous {dtype} tensor on "
-                         f"{device}, got {t.dtype} on {t.device}")
-    if len(shape) != t.dim() or any(s is not None and s != n
-                                   for s, n in zip(shape, t.shape)):
-        raise ValueError(f"{name}: need shape {shape}, got "
-                         f"{tuple(t.shape)}")
-
-
 def trace_tiles_instanced(nodes, tris, inv_mats, inst_slots, ray_o, ray_d,
-                          t_min, t_max, leaf_size: int, stack: int):
+                          t_min, t_max, leaf_size: int, stack: int,
+                          stats=None):
     """K1 wrapper: closest hit of (R, 3) WORLD-space rays over the
     instanced scene BVH.  CUDA tensors launch the kernel (or raise);
-    CPU tensors take ``trace_instanced_plain``."""
+    CPU tensors take ``trace_instanced_plain``.  stats: optional (2,)
+    int64 tensor the kernel adds its box and triangle tests to."""
     t_max = _per_ray(t_max, ray_o)
     if ray_o.device.type == "cpu":
         return trace_instanced_plain(tris, inv_mats, inst_slots, ray_o,
                                      ray_d, t_min, t_max)
     dev, f32 = ray_o.device, torch.float32
     R = ray_o.shape[0]
-    _require("nodes", nodes, (None, 36), f32, dev)
-    _require("tris", tris, (None, 9), f32, dev)
-    _require("inv_mats", inv_mats, (None, 12), f32, dev)
-    _require("ray_o", ray_o, (R, 3), f32, dev)
-    _require("ray_d", ray_d, (R, 3), f32, dev)
+    require("nodes", nodes, (None, 36), f32, dev)
+    require("tris", tris, (None, 9), f32, dev)
+    require("inv_mats", inv_mats, (None, 12), f32, dev)
+    require("ray_o", ray_o, (R, 3), f32, dev)
+    require("ray_d", ray_d, (R, 3), f32, dev)
     lib = load_library()
     if stack > lib.rtggx_k1_max_stack():
         raise ValueError(f"stack {stack} exceeds the kernel's "
@@ -251,7 +244,7 @@ def trace_tiles_instanced(nodes, tris, inv_mats, inst_slots, ray_o, ray_d,
         ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(), float(t_min),
         R, int(leaf_size), int(stack), out_t.data_ptr(), out_u.data_ptr(),
         out_v.data_ptr(), out_slot.data_ptr(), out_inst.data_ptr(),
-        stream_handle(dev))
+        pointer(stats), stream_handle(dev))
     check_launch(err, "K1 trace_tiles_instanced")
     trace_tiles_instanced.launches += 1
     return out_t, out_u, out_v, out_slot, out_inst

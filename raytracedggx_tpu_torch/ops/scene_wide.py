@@ -21,21 +21,13 @@ import numpy as np
 import torch
 
 from ..bvh.sah import build_sah
+from ..trace.traverse import HitRecord
 from .fused import (build_records4_padded, trace_instanced_plain,
                     trace_tiles_instanced)
 
 TAG_SHIFT = 20                      # stack entry = node | (tag << 20)
 MAX_NODES = 1 << TAG_SHIFT
 BIG = 3e38
-
-
-class HitRecord(NamedTuple):
-    t: torch.Tensor        # (R,) float32 (t_max where missed)
-    prim: torch.Tensor     # (R,) int64 mesh-local triangle id (-1 = miss)
-    u: torch.Tensor        # (R,) float32 barycentric of vertex 1
-    v: torch.Tensor        # (R,) float32 barycentric of vertex 2
-    hit: torch.Tensor      # (R,) bool
-    inst: torch.Tensor     # (R,) int64 instance id (-1 = miss)
 
 
 class SceneWideBVH(NamedTuple):

@@ -1,9 +1,14 @@
 """Per-mesh geometry tensors: the bindless IB/VB analog.
 
-Torch port of the part of raytracedggx_tpu/trace/geometry.py that the
-fused frame path reads: per-mesh positions, normals, triangles and the
-Moller-Trumbore precompute, plus each mesh's object-space root box (the
-reference takes it from a per-mesh LBVH, which the port does not build).
+Torch port of raytracedggx_tpu/trace/geometry.py: per-mesh positions,
+normals, triangles and the Moller-Trumbore precompute, each mesh's
+object-space root box (the bounds of its triangles' vertices, which is
+the root box of its LBVH), the packed per-triangle attribute table that
+the vertex-fetch shading route gathers from, and the per-mesh trees of
+the per-mesh traversals: the LBVH (``traversal="jax"``), its flattened
+DFS stream (``"pallas"``, kernel K4) and its 4-wide collapse
+(``"pallas4"``, kernel K5).  The trees are built only for the traversal
+that reads them; the ``"wide"`` path reads none of them.
 """
 
 from __future__ import annotations
@@ -12,6 +17,10 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+
+from ..bvh.lbvh import build_lbvh
+
+PER_MESH_TRAVERSALS = ("pallas", "pallas4", "jax")
 
 
 class MeshGeom(NamedTuple):
@@ -26,6 +35,17 @@ class MeshGeom(NamedTuple):
 class SceneGeometry(NamedTuple):
     meshes: Tuple[MeshGeom, ...]
     bounds: Tuple[Tuple[torch.Tensor, torch.Tensor], ...]  # per mesh lo, hi
+    # packed attribute rows [p0 p1 p2 n0 n1 n2] per triangle, all meshes
+    # concatenated; attrib_off[mesh] = first row of that mesh
+    attrib: torch.Tensor = None         # (sum_T, 18) float32
+    attrib_off: Tuple[int, ...] = ()
+    blas: Tuple = ()     # per-mesh LBVH (per-mesh traversals only)
+    flat: Tuple = ()     # per-mesh FlatBVH (traversal="pallas")
+    wide: Tuple = ()     # per-mesh WideBVH (traversal="pallas4")
+
+    @property
+    def tri_data(self):
+        return [(m.v0, m.e1, m.e2) for m in self.meshes]
 
 
 def upload_mesh(mesh, device=None) -> MeshGeom:
@@ -48,7 +68,71 @@ def mesh_bounds(g: MeshGeom):
     return p.amin(dim=0), p.amax(dim=0)
 
 
-def upload_scene(scene, device=None) -> SceneGeometry:
+def upload_scene(scene, device=None, traversal: str = "wide",
+                 leaf_size: int = 8) -> SceneGeometry:
+    """Upload every mesh; for a per-mesh traversal also build each mesh's
+    LBVH and, for "pallas" / "pallas4", its flattened tree at
+    ``leaf_size``."""
+    from ..ops.flatten import flatten_bvh
+    from ..ops.wide import flatten_bvh4
+
     meshes = tuple(upload_mesh(m, device) for m in scene.meshes)
-    return SceneGeometry(meshes=meshes,
-                         bounds=tuple(mesh_bounds(g) for g in meshes))
+    offs, rows, off = [], [], 0
+    for m in scene.meshes:
+        tri = np.asarray(m.indices, np.int64).reshape(-1, 3)
+        p = np.asarray(m.positions, np.float32)[tri].reshape(-1, 9)
+        n = np.asarray(m.normals, np.float32)[tri].reshape(-1, 9)
+        rows.append(np.concatenate([p, n], axis=1))
+        offs.append(off)
+        off += tri.shape[0]
+    geom = SceneGeometry(
+        meshes=meshes, bounds=tuple(mesh_bounds(g) for g in meshes),
+        attrib=torch.as_tensor(np.concatenate(rows), device=device),
+        attrib_off=tuple(offs))
+    if traversal not in PER_MESH_TRAVERSALS:
+        return geom
+    blas = tuple(build_lbvh(g.positions, g.tri.reshape(-1)) for g in meshes)
+
+    def trees(flatten):
+        return tuple(flatten(b, g.v0, g.e1, g.e2, leaf_size=leaf_size)
+                     for b, g in zip(blas, meshes))
+
+    return geom._replace(
+        blas=blas,
+        flat=trees(flatten_bvh) if traversal == "pallas" else (),
+        wide=trees(flatten_bvh4) if traversal == "pallas4" else ())
+
+
+def fetch_vertices(geom: SceneGeometry, mesh_ids, inst, prim):
+    """getVertices (RayTracing.hlsl:230-244): the 3 object-space vertex
+    positions and normals of (inst, prim), one gather from the packed
+    table.  Returns ((R, 3, 3), (R, 3, 3)); where inst is not an instance
+    (a miss) row 0 is read and the caller masks."""
+    dev = inst.device
+    off = torch.as_tensor([geom.attrib_off[m] for m in mesh_ids],
+                          device=dev)
+    lim = torch.as_tensor([geom.meshes[m].tri.shape[0] - 1
+                           for m in mesh_ids], device=dev)
+    valid = (inst >= 0) & (inst < len(mesh_ids))
+    ic = torch.clamp(inst, 0, len(mesh_ids) - 1)
+    row = torch.where(valid, off[ic] + torch.clamp(prim, min=0).minimum(
+        lim[ic]), 0)
+    vals = geom.attrib[row]                                 # (R, 18)
+    return (vals[..., 0:9].reshape(inst.shape + (3, 3)),
+            vals[..., 9:18].reshape(inst.shape + (3, 3)))
+
+
+def interp_attribs(geom: SceneGeometry, mesh_ids, inst, prim, u, v):
+    """interpAttrib (RayTracing.hlsl:249-271): barycentric-interpolated
+    object-space position and (unnormalised) normal at (inst, prim, u, v)."""
+    p, n = fetch_vertices(geom, mesh_ids, inst, prim)
+    return interp_from_vertices(p, n, u, v)
+
+
+def interp_from_vertices(p, n, u, v):
+    w0 = (1.0 - u - v)[..., None]
+    w1 = u[..., None]
+    w2 = v[..., None]
+    pos = w0 * p[..., 0, :] + w1 * p[..., 1, :] + w2 * p[..., 2, :]
+    nrm = w0 * n[..., 0, :] + w1 * n[..., 1, :] + w2 * n[..., 2, :]
+    return pos, nrm

@@ -1,22 +1,37 @@
 """The ray-trace dispatch: raygen + closest-hit + miss, as three waves.
 
-Torch port of the fused-traversal path of raytracedggx_tpu/trace/raygen.py
-(RayTracing.hlsl:540-625): a primary wave (visibility buffer + G-buffers,
-``bary_mode="direct"``), a GGX reflection wave and a cosine diffuse wave,
-each traced by K1 (ops/scene_wide.trace_scene_wide_fused) and shaded in
-the sorted ray domain.
+Torch port of raytracedggx_tpu/trace/raygen.py (RayTracing.hlsl:540-625):
+a primary wave (visibility buffer + G-buffers), a GGX reflection wave and
+a cosine diffuse wave.  Two routes, as in the reference:
+
+- ``trace_fused(o, d, t_min, t_max) -> (HitRecord, normal)`` (kernel K1,
+  ``traversal="wide"``): the kernel interpolates the object-space normal,
+  hit points lie on the ray, and each secondary wave is traced AND shaded
+  in the sorted ray domain;
+- ``trace_fn(tlas, o, d, t_min, t_max) -> HitRecord`` (the per-mesh
+  traversals: K4, K5 or the plain wavefront ``trace_scene``): surface
+  attributes come from the hit triangle's vertices
+  (``trace.geometry.fetch_vertices``), and waves shade in row-major order.
+
+``bary_mode="ndc"`` reconstructs the primary barycentrics from the
+projected vertices (``calc_barycentrics``, RayTracing.hlsl:204-225); it
+needs the vertices, so with ``trace_fused`` it traces through a
+``trace_fn`` wrapper, as the reference does.
 
 Dropped TPU workarounds that change no output:
 - the static bucket prefix with its ``lax.cond`` overflow fallback
-  (raygen.py:200-310): K1 runs over the whole sorted wave, and dead rays
-  (t_max < 0) return at once in the kernel;
+  (raygen.py:200-310): the kernels run over the whole sorted wave, and
+  dead rays (t_max < 0) return at once;
 - ``take_small``'s one-hot matmul is an index gather (trace/shade.py);
-- the diffuse wave's runtime ``lax.cond`` gate is a host-side
-  ``bool(any())`` — the wave still runs only when some ray is live.
+- the diffuse wave's runtime gate is a host-side ``bool(any())`` on both
+  routes.  The reference gates only the fused route (raygen.py:769-777);
+  on the ``trace_fn`` route an all-dead wave gives the same output (hit
+  pixels masked to 0, sky pixels env(-V), which the reflection wave
+  already sampled), so the port skips its launches there too.
 
-Not ported yet (raise NotImplementedError): ``bary_mode="ndc"``, the
-non-fused ``trace_fn`` branches, ``anchor_fn`` and the ``dbg_*`` knobs;
-the bounce sort key keeps the reference's default 3-bit octant.
+Not ported yet (raise NotImplementedError): ``anchor_fn`` and the
+``dbg_*`` knobs; the bounce sort key keeps the reference's default 3-bit
+octant.
 """
 
 from __future__ import annotations
@@ -30,8 +45,10 @@ from ..sh import evaluate_sh_irradiance
 from ..utils.math3d import reflect, saturate
 from .brdf import PI, env_brdf_approx, f_schlick, vis_smith
 from .env import EnvMap, sample_env
+from .geometry import fetch_vertices, interp_attribs, interp_from_vertices
 from .sampling import cos_dir, ggx_dir, sample_param
 from .shade import get_base_color, get_rough_metal, get_uv, take_small
+from .traverse import HitRecord, trace_scene
 
 PRIMITIVE_BITS = 24
 T_MIN_SECONDARY = 1e-5
@@ -74,6 +91,38 @@ def _order_fns(ray_order):
     return (lambda x: x[order]), (lambda x: x[inv])
 
 
+def default_tracer(geom):
+    """trace_fn over the per-mesh LBVHs with the plain wavefront traversal
+    (``traversal="jax"``).  A per-ray t_max is applied after the trace,
+    as the reference does."""
+    def fn(tlas, o, d, t_min, t_max):
+        per_ray = torch.is_tensor(t_max) and t_max.dim() != 0
+        rec = trace_scene(geom.blas, geom.tri_data, tlas, o, d, t_min,
+                          T_MAX if per_ray else t_max)
+        if per_ray:
+            dead = t_max < 0
+            rec = rec._replace(hit=rec.hit & ~dead,
+                               inst=torch.where(dead, -1, rec.inst))
+        return rec
+    return fn
+
+
+def _trace_ordered(trace_fn, tlas, o, d, t_min, t_max, ray_order):
+    """Trace with an optional ray permutation and return the HitRecord
+    row-major."""
+    if ray_order is None:
+        return trace_fn(tlas, o, d, t_min, t_max)
+    perm, unperm = _order_fns(ray_order)
+    bundle = perm(torch.cat([o, d, _per_ray(t_max, o)[:, None]], dim=-1))
+    rec = trace_fn(tlas, bundle[:, 0:3], bundle[:, 3:6], t_min,
+                   bundle[:, 6])
+    fl = unperm(torch.stack([rec.t, rec.u, rec.v, rec.hit.to(rec.t.dtype)],
+                            dim=-1))
+    ints = unperm(torch.stack([rec.prim, rec.inst], dim=-1))
+    return HitRecord(t=fl[:, 0], prim=ints[:, 0], u=fl[:, 1], v=fl[:, 2],
+                     hit=fl[:, 3] > 0.5, inst=ints[:, 1])
+
+
 def _trace_ordered_fused(trace_fused, o, d, t_min, t_max, ray_order):
     """Trace in ``ray_order`` and return (HitRecord, normal) row-major."""
     if ray_order is None:
@@ -95,6 +144,10 @@ def _trace_shade_ordered_fused(trace_fused, shade_fn, o, d, t_min, t_max,
     """Trace AND shade in the sorted ray domain (neighbouring rays tap
     neighbouring env texels), un-permuting only the radiance.  Returns
     (radiance (R, 3), secondary hit (R,)) in original ray order."""
+    if ray_order is None:
+        rec, nrm = trace_fused(o, d, t_min, t_max)
+        shaded, env_tap = shade_fn(rec, nrm, o, d)
+        return torch.where(rec.hit[..., None], shaded, env_tap), rec.hit
     perm, unperm = _order_fns(ray_order)
     bundle = perm(torch.cat([o, d, _per_ray(t_max, o)[:, None]], dim=-1))
     o_s, d_s = bundle[:, 0:3], bundle[:, 3:6]
@@ -119,44 +172,57 @@ def _mip_level(env: EnvMap, rough):
     return env.num_mips - 1.0 - level
 
 
-def _spec_env_shade(env: EnvMap, n, v, rough, color, metal, miss_dir, hit,
-                    miss_lod=0.0):
-    """computeReflection at the recursion limit (RayTracing.hlsl:442-481)
-    with the env tap serving double duty: hit lanes sample the
+def _spec_env_shade(env: EnvMap, n, v, rough, color, metal, miss_dir=None,
+                    hit=None, miss_lod=0.0):
+    """computeReflection at the recursion limit (RayTracing.hlsl:442-481).
+    With miss_dir the env tap serves double duty: hit lanes sample the
     roughness-filtered spec direction, miss lanes (miss_dir, miss_lod).
-    Returns (spec, env_tap)."""
+    Returns (spec, env_tap), env_tap None without miss_dir."""
     a = rough * rough
     r = reflect(-v, n)
     k = ((1.0 - a) * (torch.sqrt(torch.clamp(1.0 - a, min=0.0)) + a))[..., None]
     d = n + (r - n) * k                      # lerp(N, R, k), unnormalized
     nol = torch.sum(n * d, dim=-1)
     nov = saturate(torch.sum(n * v, dim=-1))
-    tap_d = torch.where(hit[..., None], d, miss_dir)
-    tap_l = torch.where(hit, _mip_level(env, rough),
-                        torch.full_like(rough, float(miss_lod)))
-    env_tap = sample_env(env, tap_d, tap_l)
-    rad = torch.where((nol > 0.0)[..., None], env_tap, 0.0)
+    if miss_dir is None:
+        env_tap = None
+        rad = sample_env(env, d, _mip_level(env, rough))
+    else:
+        tap_d = torch.where(hit[..., None], d, miss_dir)
+        tap_l = torch.where(hit, _mip_level(env, rough),
+                            torch.full_like(rough, float(miss_lod)))
+        env_tap = rad = sample_env(env, tap_d, tap_l)
+    rad = torch.where((nol > 0.0)[..., None], rad, 0.0)
     f0 = 0.04 * (1.0 - metal[..., None]) + color * metal[..., None]
     return rad * env_brdf_approx(f0, rough, nov), env_tap
 
 
-def _shade_secondary(consts, mats, env, sh_coeffs, rec, ray_dir, fused_n,
-                     ray_o, damp_diffuse_albedo):
+def _shade_secondary(consts, mats, env, sh_coeffs, rec, ray_dir,
+                     damp_diffuse_albedo, fused_n=None, ray_o=None,
+                     geom=None, mesh_ids=None):
     """Closest-hit shading of depth-1 rays (closestHitReflection /
     closestHitDiffuse, RayTracing.hlsl:570-614): metallic > 0.5 takes the
     env-specular route, else SH diffuse (albedo damped by 1 - metallic on
     the diffuse wave).  fused_n: the OBJECT-space interpolated normal from
-    K1; the hit point is on the ray.  Returns (shaded, env_tap)."""
-    p_world = ray_o + rec.t[..., None] * ray_dir
-    pos_obj = world_to_object(consts, rec.inst, p_world)
-    n = _normalize(torch.einsum("...c,...cd->...d", fused_n,
+    K1, the hit point on the ray, and the env tap doubles as the miss
+    radiance; without it the attributes come from the hit triangle's
+    vertices (geom, mesh_ids).  Returns (shaded, env_tap or None)."""
+    if fused_n is not None:
+        p_world = ray_o + rec.t[..., None] * ray_dir
+        pos_obj = world_to_object(consts, rec.inst, p_world)
+        nrm_obj = fused_n
+    else:
+        pos_obj, nrm_obj = interp_attribs(geom, mesh_ids, rec.inst,
+                                          rec.prim, rec.u, rec.v)
+    n = _normalize(torch.einsum("...c,...cd->...d", nrm_obj,
                                 take_small(consts.world_its, rec.inst)))
     v = -ray_dir
-    uv = get_uv(fused_n, pos_obj)
+    uv = get_uv(nrm_obj, pos_obj)
     rough, metal = get_rough_metal(mats.rough_metals, rec.inst, uv)
     color = get_base_color(mats.base_colors, rec.inst)[..., :3]
-    spec, env_tap = _spec_env_shade(env, n, v, rough, color, metal,
-                                    miss_dir=ray_dir, hit=rec.hit)
+    spec, env_tap = _spec_env_shade(
+        env, n, v, rough, color, metal,
+        miss_dir=ray_dir if fused_n is not None else None, hit=rec.hit)
     albedo = color * (1.0 - metal[..., None]) if damp_diffuse_albedo \
         else color
     diff = evaluate_sh_irradiance(sh_coeffs, n) / PI * albedo
@@ -181,16 +247,69 @@ def primary_rays(consts: FrameConstants, width: int, height: int):
     return ndc, p_near, _normalize(p_near - consts.eye)
 
 
+def calc_barycentrics(p, ndc):
+    """calcBarycentrics (RayTracing.hlsl:204-225): perspective-correct
+    barycentrics from clip-space triangle p (R, 3, 4) and pixel NDC
+    (R, 2)."""
+    inv_w = 1.0 / p[..., 3]                       # (R, 3)
+    ndc_v = p[..., :2] * inv_w[..., None]         # (R, 3, 2)
+    d21 = ndc_v[..., 2, :] - ndc_v[..., 1, :]
+    d01 = ndc_v[..., 0, :] - ndc_v[..., 1, :]
+    inv_det = 1.0 / (d21[..., 0] * d01[..., 1] - d21[..., 1] * d01[..., 0])
+    dpdx = torch.stack([ndc_v[..., 1, 1] - ndc_v[..., 2, 1],
+                        ndc_v[..., 2, 1] - ndc_v[..., 0, 1],
+                        ndc_v[..., 0, 1] - ndc_v[..., 1, 1]],
+                       dim=-1) * inv_det[..., None]
+    dpdy = torch.stack([ndc_v[..., 2, 0] - ndc_v[..., 1, 0],
+                        ndc_v[..., 0, 0] - ndc_v[..., 2, 0],
+                        ndc_v[..., 1, 0] - ndc_v[..., 0, 0]],
+                       dim=-1) * inv_det[..., None]
+    delta = ndc - ndc_v[..., 0, :]
+    interp_inv_w = (inv_w[..., 0]
+                    + delta[..., 0] * torch.sum(inv_w * dpdx, dim=-1)
+                    + delta[..., 1] * torch.sum(inv_w * dpdy, dim=-1))
+    interp_w = 1.0 / interp_inv_w
+    bx = interp_w * (delta[..., 0] * dpdx[..., 1] * inv_w[..., 1]
+                     + delta[..., 1] * dpdy[..., 1] * inv_w[..., 1])
+    by = interp_w * (delta[..., 0] * dpdx[..., 2] * inv_w[..., 2]
+                     + delta[..., 1] * dpdy[..., 2] * inv_w[..., 2])
+    return bx, by
+
+
 def primary_surface(consts: FrameConstants, mats: MaterialsDev, width: int,
-                    height: int, trace_fused, ray_order=None):
+                    height: int, trace_fused=None, ray_order=None,
+                    bary_mode: str = "direct", trace_fn=None, geom=None,
+                    tlas=None):
     """Primary cast replacing the visibility raster + getPrimarySurface
-    (RayTracing.hlsl:277-333), barycentrics straight from the ray hit.
-    Returns a dict of flat (R,) / (R, C) tensors."""
+    (RayTracing.hlsl:277-333).  Returns a dict of flat (R,) / (R, C)
+    tensors."""
     ndc, p_near, ray_d = primary_rays(consts, width, height)
-    rec, nrm_obj = _trace_ordered_fused(trace_fused, p_near, ray_d, 0.0,
-                                        T_MAX, ray_order)
-    p_world = p_near + rec.t[..., None] * ray_d
-    pos_obj = world_to_object(consts, rec.inst, p_world)
+    if trace_fused is not None and bary_mode == "direct":
+        # K1 returns interpolated OBJECT-space normals; the hit point is
+        # on the ray, its object position from the inverse world
+        rec, nrm_obj = _trace_ordered_fused(trace_fused, p_near, ray_d, 0.0,
+                                            T_MAX, ray_order)
+        p_world = p_near + rec.t[..., None] * ray_d
+        pos_obj = world_to_object(consts, rec.inst, p_world)
+    else:
+        if trace_fused is not None:     # ndc barycentrics need vertices
+            def trace_fn(_tlas, o, d, a, b):
+                return trace_fused(o, d, a, b)[0]
+        rec = _trace_ordered(trace_fn, tlas, p_near, ray_d, 0.0, T_MAX,
+                             ray_order)
+        vp, vn = fetch_vertices(geom, tlas.mesh_ids, rec.inst, rec.prim)
+        if bary_mode == "ndc":
+            vh = torch.cat([vp, torch.ones_like(vp[..., :1])], dim=-1)
+            clip_v = torch.einsum(
+                "...vc,...cd->...vd", vh,
+                take_small(consts.world_view_projs, rec.inst))
+            u, v = calc_barycentrics(clip_v, ndc)
+        else:
+            u, v = rec.u, rec.v
+        pos_obj, nrm_obj = interp_from_vertices(vp, vn, u, v)
+        worlds = take_small(consts.worlds, rec.inst)
+        p_world = (torch.einsum("...c,...cd->...d", pos_obj,
+                                worlds[..., :3, :3]) + worlds[..., 3, :3])
     n = _normalize(torch.einsum("...c,...cd->...d", nrm_obj,
                                 take_small(consts.world_its, rec.inst)))
 
@@ -248,21 +367,28 @@ def reflection_rays(surf, xi):
 
 def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
                    env: EnvMap, sh_coeffs, width: int, height: int,
-                   trace_fused, ray_order=None,
-                   bary_mode: str = "direct", trace_fn=None, anchor_fn=None,
+                   trace_fused=None, ray_order=None,
+                   bary_mode: str = "direct", trace_fn=None, geom=None,
+                   sort_secondary: bool = True, anchor_fn=None,
                    dbg_no_refl_trace=False, dbg_no_secondary_shade=False,
                    dbg_env_mode="full", dbg_miss_lod=0.0):
-    """Full DispatchRays equivalent on the fused (K1) path.  Returns a dict
-    of (H, W, C) images: refl, diff (radiance), normal (xyz*0.5+0.5 + hit
-    alpha), rough_metal, velocity, depth, vis (int64)."""
-    if (bary_mode != "direct" or trace_fn is not None or anchor_fn is not None
+    """Full DispatchRays equivalent.  Returns a dict of (H, W, C) images:
+    refl, diff (radiance), normal (xyz*0.5+0.5 + hit alpha), rough_metal,
+    velocity, depth, vis (int64).
+
+    trace_fused (K1) or trace_fn(tlas, o, d, t_min, t_max) -> HitRecord;
+    with neither, the plain wavefront traversal over geom's LBVHs.
+    ray_order: screen-block order of the primary wave; sort_secondary:
+    dead | octant | Morton order for the bounce waves (else ray_order)."""
+    if (bary_mode not in ("direct", "ndc") or anchor_fn is not None
             or dbg_no_refl_trace or dbg_no_secondary_shade
             or dbg_env_mode != "full" or dbg_miss_lod != 0.0):
         raise NotImplementedError(
-            "only the fused direct-barycentric path is ported (ndc, trace_fn, "
-            "anchor_fn and the dbg_* knobs wait)")
+            "anchor_fn and the dbg_* knobs are not ported")
+    if trace_fn is None and trace_fused is None:
+        trace_fn = default_tracer(geom)
     surf = primary_surface(consts, mats, width, height, trace_fused,
-                           ray_order)
+                           ray_order, bary_mode, trace_fn, geom, tlas)
     hit = surf["hit"]
     n, v, p = surf["n"], surf["v"], surf["p"]
     rough, metal, color = surf["rough"], surf["metal"], surf["color"]
@@ -273,23 +399,43 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
     hi = tlas.aabb_max.amax(dim=0)
 
     def wave(dirs, tmax, damp_diffuse_albedo):
-        order = sort_rays_morton(p, dirs, lo, hi, active=tmax > 0)
+        """(radiance, secondary hit) of a bounce wave.  On the trace_fn
+        route the radiance is the hit shading on every lane (the caller
+        puts in the miss radiance)."""
+        order = (sort_rays_morton(p, dirs, lo, hi, active=tmax > 0)
+                 if sort_secondary else ray_order)
+        if trace_fused is not None:
+            def shade(rec, nrm, o_s, d_s):
+                return _shade_secondary(consts, mats, env, sh_coeffs, rec,
+                                        d_s, damp_diffuse_albedo,
+                                        fused_n=nrm, ray_o=o_s)
 
-        def shade(rec, nrm, o_s, d_s):
-            return _shade_secondary(consts, mats, env, sh_coeffs, rec, d_s,
-                                    nrm, o_s, damp_diffuse_albedo)
+            return _trace_shade_ordered_fused(trace_fused, shade, p, dirs,
+                                              T_MIN_SECONDARY, tmax, order)
+        rec = _trace_ordered(trace_fn, tlas, p, dirs, T_MIN_SECONDARY, tmax,
+                             order)
+        shaded, _ = _shade_secondary(consts, mats, env, sh_coeffs, rec,
+                                     dirs, damp_diffuse_albedo, geom=geom,
+                                     mesh_ids=tlas.mesh_ids)
+        return shaded, rec.hit
 
-        return _trace_shade_ordered_fused(trace_fused, shade, p, dirs,
-                                          T_MIN_SECONDARY, tmax, order)
-
-    # ---------------- reflection wave (computeReflection, depth 0) -------
-    h, nol, trace_dir, tmax_r = reflection_rays(surf, xi)
-    radiance_r, hit_r = wave(trace_dir, tmax_r, False)
     # closestHitReflection early-out (:573): payload seeded with
     # color * metallic; an all-nonpositive seed skips hit shading
     seed = color * metal[..., None]
     seed_dead = torch.all(seed <= 0.0, dim=-1, keepdim=True)
-    radiance_r = torch.where(seed_dead & hit_r[..., None], seed, radiance_r)
+
+    # ---------------- reflection wave (computeReflection, depth 0) -------
+    h, nol, trace_dir, tmax_r = reflection_rays(surf, xi)
+    radiance_r, hit_r = wave(trace_dir, tmax_r, False)
+    if trace_fused is not None:
+        radiance_r = torch.where(seed_dead & hit_r[..., None], seed,
+                                 radiance_r)
+        sky_env = radiance_r
+    else:
+        shaded_r = torch.where(seed_dead, seed, radiance_r)
+        sky_env = sample_env(env, trace_dir, 0.0)
+        radiance_r = torch.where(hit_r[..., None] & hit[..., None], shaded_r,
+                                 sky_env)
 
     # primary BRDF weight (RayTracing.hlsl:461-478)
     f0 = 0.04 * (1.0 - metal[..., None]) + color * metal[..., None]
@@ -313,12 +459,16 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
     if bool((tmax_d > 0.0).any()):
         d_dir = cos_dir(n, xi)
         trace_dir_d = torch.where(hit[..., None], d_dir, -v)
-        radiance_d, _ = wave(trace_dir_d, tmax_d, True)
+        radiance_d, hit_d = wave(trace_dir_d, tmax_d, True)
+        if trace_fused is None:
+            radiance_d = torch.where(hit_d[..., None] & hit[..., None],
+                                     radiance_d,
+                                     sample_env(env, trace_dir_d, 0.0))
         # primary albedo weight: albedo * (1 - 0.04) at depth 0 (:532)
         diff = torch.where(hit[..., None], radiance_d * color * (1.0 - 0.04),
                            radiance_d)
     else:
-        diff = torch.where(hit[..., None], 0.0, radiance_r)
+        diff = torch.where(hit[..., None], 0.0, sky_env)
     # metallic >= 1 pixels never get a diffuse ray (raygenMain:559)
     diff = torch.where((metal < 1.0)[..., None], diff, 0.0)
 

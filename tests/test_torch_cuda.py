@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1, K2, K3) against their plain torch versions
+"""The port's CUDA kernels (K1-K5) against their plain torch versions
 on the card.  Every test here needs an NVIDIA GPU with nvcc and skips
 without one; this file imports neither jax nor the JAX package, so on a
 GPU machine without JAX it runs on its own:
@@ -10,8 +10,10 @@ import numpy as np
 import pytest
 import torch
 
+from raytracedggx_tpu_torch.bvh import build_lbvh, build_tlas
 from raytracedggx_tpu_torch.denoise import tm
-from raytracedggx_tpu_torch.ops import fused, spatial_cuda
+from raytracedggx_tpu_torch.ops import (flatten, fused, spatial_cuda,
+                                        traverse_cuda, wide)
 from raytracedggx_tpu_torch.ops.scene_wide import (build_scene_wide,
                                                    refit_scene_wide)
 from raytracedggx_tpu_torch.scene import Scene, default_materials, ground_cube
@@ -106,3 +108,93 @@ def test_wrappers_refuse_bad_inputs(cuda):
         spatial_cuda.reflection_pass(x.double(), n, a, a, 8, 8, 1)
     with pytest.raises(ValueError):
         spatial_cuda.diffuse_pass(x, n, a.t(), a, 0)
+
+
+PER_MESH = {"K4": (flatten.flatten_bvh, traverse_cuda.trace_tiles_flat,
+                   traverse_cuda.trace_scene_flat, "pallas", "flat"),
+            "K5": (wide.flatten_bvh4, wide.trace_tiles4, wide.trace_scene4,
+                   "pallas4", "wide")}
+
+
+def _hold(got_t, got_id, ref_t, ref_id, t_max, got_inst=None, ref_inst=None):
+    hit = ref_id >= 0
+    assert torch.equal(got_id >= 0, hit) and bool(hit.any())
+    assert not bool((got_id[t_max < 0] >= 0).any())
+    torch.testing.assert_close(got_t[hit], ref_t[hit], rtol=1e-4, atol=1e-5)
+    same = got_id == ref_id
+    if got_inst is not None:
+        same = same & (got_inst == ref_inst)
+    assert float(same[hit].float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+@pytest.mark.parametrize("leaf_size", [1, 8])
+def test_per_mesh_kernels_match_plain(cuda, kernel, leaf_size):
+    """One mesh of random triangles, rays moved to its object space by an
+    inverse world inside the kernel, every third ray dead."""
+    flatten_fn, wrapper, _, _, _ = PER_MESH[kernel]
+    rng = np.random.default_rng(5)
+    n = 3000
+    base = (rng.random((n, 1, 3)) - 0.5) * 8
+    pos = (base + (rng.random((n, 3, 3)) - 0.5)).reshape(-1, 3)
+    pos = torch.as_tensor(pos.astype(np.float32), device=cuda)
+    tri = pos.reshape(-1, 3, 3)
+    v0, e1, e2 = tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
+    tree = flatten_fn(build_lbvh(pos, torch.arange(3 * n, device=cuda)),
+                      v0, e1, e2, leaf_size=leaf_size)
+    world = torch.eye(4)
+    world[:3, :3] = torch.tensor([[0.8, 0.0, -0.6], [0.0, 1.3, 0.0],
+                                  [0.6, 0.0, 0.8]])
+    world[3, :3] = torch.tensor([1.0, -2.0, 0.5])
+    inv = traverse_cuda.inv_rows(torch.linalg.inv(world)[None])[0].to(cuda)
+    o, d = _rand_rays(rng, 4096, cuda)
+    t_max = torch.where(torch.arange(4096, device=cuda) % 3 == 0, -1.0, 1e4)
+    n0 = wrapper.launches
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    got = wrapper(tree, o, d, 1e-4, t_max, inv, stats)
+    ref = traverse_cuda.trace_stream_plain(tree.tris, o, d, 1e-4, t_max, inv)
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + 1
+    _hold(got[0], got[3], ref[0], ref[3], t_max)
+    assert int(stats[0]) > 0 and int(stats[1]) > 0
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_per_instance_loops_match_plain(cuda, kernel):
+    """The 9-instance nested scene through trace_scene_flat / trace_scene4:
+    kernel against the same loop over the plain version."""
+    _, _, scene_fn, traversal, key = PER_MESH[kernel]
+    extra = tuple((2.5 * i - 5.0, 1.0, 2.5 * ((i * 7) % 3), 0.4)
+                  for i in range(7))
+    scene = Scene(meshes=[ground_cube(), ground_cube()],
+                  materials=default_materials(),
+                  pos_scale=np.array([0.0, 2.0, 0.0, 1.0], np.float32),
+                  extra_instances=extra)
+    geom = upload_scene(scene, cuda, traversal=traversal, leaf_size=8)
+    tlas = build_tlas(geom.bounds, scene.worlds(1.3).to(cuda),
+                      scene.mesh_ids)
+    o, d = _rand_rays(np.random.default_rng(9), 4096, cuda)
+    t_max = torch.where(torch.arange(4096, device=cuda) % 2 == 0, 1e4, -1.0)
+    got = scene_fn(getattr(geom, key), tlas, o, d, 0.0, t_max, impl="cuda")
+    ref = scene_fn(getattr(geom, key), tlas, o, d, 0.0, t_max, impl="xla")
+    torch.cuda.synchronize()
+    _hold(got.t, got.prim, ref.t, ref.prim, t_max, got.inst, ref.inst)
+    assert len(set(got.inst[got.hit].tolist())) > 2
+
+
+def test_per_mesh_wrappers_refuse_bad_inputs(cuda):
+    """Non-contiguous rays and a K5 tree deeper than the kernel's stack
+    raise instead of falling back."""
+    pos = torch.rand((300, 3), device=cuda)
+    tri = pos.reshape(-1, 3, 3)
+    v0, e1, e2 = tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
+    bvh = build_lbvh(pos, torch.arange(300, device=cuda))
+    flat = flatten.flatten_bvh(bvh, v0, e1, e2)
+    w4 = wide.flatten_bvh4(bvh, v0, e1, e2)
+    rays = torch.rand((64, 6), device=cuda)
+    o, d = rays[:, :3], rays[:, 3:]
+    with pytest.raises(ValueError):
+        traverse_cuda.trace_tiles_flat(flat, o, d, 0.0, 1e4)
+    with pytest.raises(ValueError):
+        wide.trace_tiles4(w4._replace(stack=10 ** 6), o.contiguous(),
+                          d.contiguous(), 0.0, 1e4)

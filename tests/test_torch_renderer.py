@@ -55,7 +55,7 @@ def test_frames_match_reference_renderer(monkeypatch):
                    config=JRenderConfig(width=W, height=H, traversal="wide"))
     tr = Renderer(Scene(meshes=[ground_cube(), ground_cube()],
                         materials=default_materials(), pos_scale=POS),
-                  config=RenderConfig(width=W, height=H))
+                  config=RenderConfig(width=W, height=H), device="cpu")
     js, ts = jr.init_state(), tr.init_state()
     # 3 all-metal frames (diffuse wave and filter gated off), then 2 at
     # metallic 0.5 (both live)
@@ -79,7 +79,7 @@ def test_frames_match_golden_image():
 
     r = Renderer(Scene(meshes=[ground_cube(), ground_cube()],
                        materials=default_materials(), pos_scale=POS),
-                 config=RenderConfig(width=W, height=H))
+                 config=RenderConfig(width=W, height=H), device="cpu")
     state, frame = r.run_frames(FRAMES)
     want = np.asarray(Image.open(GOLDEN)).astype(np.float32) / 255.0
     diff = np.abs(np.clip(frame.numpy(), 0, 1) - want)
