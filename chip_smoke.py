@@ -22,7 +22,14 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     then 5 at metallic 0.5);
  5. the golden cube scene at 96x54, 3 frames, against the JAX package's
     frozen PNGs: the default frame on "wide", and bary_mode="ndc" with
-    emulate_formats on "pallas4" and "pallas".
+    emulate_formats on "pallas4" and "pallas";
+ 6. the kernel lab: the kbench port's ray sets at 1280x720 over the model
+    scene's trees (leaf 8, 16, 32, 64); for each of 15 variants covering
+    every flag, K6a / K6b / K7 against its plain version on 16,384 rays
+    (hits, per-ray visit counts, stack depth, times, bound), then, with
+    the lab's launch counts set to 0 just before and read just after,
+    kbench's own run of those variants on both full sets with its gate
+    against K1.
 The second-to-last line is a JSON summary of the kernels (launches on
 their path, parity error, kernel / plain times, the bound); the last line
 is {"ok": true, "device": {...}}.  Needs CUDA: without it this exits
@@ -57,6 +64,14 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BOX_OPS = 25        # slab test: 6 sub, 6 mul, 6 min/max, 4 min/max, 3 cmp
 TRI_OPS = 51        # Moller-Trumbore: 2 cross, 3 dots, rcp, 3 sub, 6 cmp
+SLOT_OPS_MXU = 91   # linear form: 4 outputs x 10 FMAs, rcp, 3 mul, 7 cmp/add
+# phase 6: the kernel-lab variants checked and driven, the row each kernel
+# reports in the JSON line, kbench frames per variant and ray set
+LAB_VARIANTS = ("base", "stats", "unordered", "npop1", "npop4", "lean_l16",
+                "defer_l64", "fold_l16", "pre_l64", "sub4_l64", "smem",
+                "tile16", "ls_lean_l16", "mxu32", "mxu16")
+LAB_ROWS = {"K6a": "base", "K6b": "ls_lean_l16", "K7": "mxu32"}
+LAB_FRAMES = 10
 
 
 def check(ok, msg):
@@ -109,69 +124,6 @@ def build_kernels():
 
 
 # ---------------------------------------------------------------- phase 2
-def model_mesh(subdiv: int = 6):
-    """Icosphere subdivided ``subdiv`` times (20 * 4**subdiv triangles),
-    radially displaced by a fixed smooth function of direction, with
-    area-weighted smooth vertex normals."""
-    from raytracedggx_tpu_torch.scene import Mesh
-
-    t = (1.0 + 5.0 ** 0.5) / 2.0
-    v = np.array([[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
-                  [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
-                  [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]], np.float64)
-    f = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
-                  [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
-                  [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
-                  [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]])
-    v /= np.linalg.norm(v, axis=1, keepdims=True)
-    for _ in range(subdiv):
-        edges = np.sort(np.concatenate([f[:, [0, 1]], f[:, [1, 2]],
-                                        f[:, [2, 0]]]), axis=1)
-        uniq, inv = np.unique(edges, axis=0, return_inverse=True)
-        mid = v[uniq[:, 0]] + v[uniq[:, 1]]
-        mid /= np.linalg.norm(mid, axis=1, keepdims=True)
-        m = inv.reshape(3, -1) + len(v)
-        a, b, c = f[:, 0], f[:, 1], f[:, 2]
-        ab, bc, ca = m[0], m[1], m[2]
-        f = np.concatenate([np.stack([a, ab, ca], 1), np.stack([ab, b, bc], 1),
-                            np.stack([ca, bc, c], 1),
-                            np.stack([ab, bc, ca], 1)])
-        v = np.concatenate([v, mid])
-    x, y, z = v[:, 0], v[:, 1], v[:, 2]
-    r = 1.0 + 0.12 * np.sin(4.0 * x + 1.0) * np.cos(3.0 * y) \
-        + 0.08 * np.sin(6.0 * z + 2.0 * x)
-    pos = v * r[:, None]
-    fn = np.cross(pos[f[:, 1]] - pos[f[:, 0]], pos[f[:, 2]] - pos[f[:, 0]])
-    nrm = np.zeros_like(pos)
-    for k in range(3):
-        np.add.at(nrm, f[:, k], fn)
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    return Mesh(pos.astype(np.float32), nrm.astype(np.float32),
-                f.reshape(-1).astype(np.uint32))
-
-
-def model_scene():
-    from raytracedggx_tpu_torch.scene import Scene, default_materials, \
-        ground_cube
-
-    return Scene(meshes=[ground_cube(), model_mesh()],
-                 materials=default_materials(),
-                 pos_scale=np.array([0.0, 1.0, 0.0, 1.0], np.float32))
-
-
-def nested_scene():
-    """The 9-instance scene of tests/test_scene_wide.py (nested top tree)."""
-    from raytracedggx_tpu_torch.scene import Scene, default_materials, \
-        ground_cube
-
-    extra = tuple((2.5 * i - 5.0, 1.0, 2.5 * ((i * 7) % 3), 0.4)
-                  for i in range(7))
-    return Scene(meshes=[ground_cube(), ground_cube()],
-                 materials=default_materials(),
-                 pos_scale=np.array([0.0, 2.0, 0.0, 1.0], np.float32),
-                 extra_instances=extra)
-
-
 def scene_bvh(scene, angle, device, leaf_size=64):
     from raytracedggx_tpu_torch.ops.scene_wide import (build_scene_wide,
                                                        refit_scene_wide)
@@ -229,16 +181,16 @@ def bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def trace_bound(inputs, n_rays, out_bytes_per_ray, stats):
+def trace_bound(inputs, n_rays, out_bytes_per_ray, stats, tri_ops=TRI_OPS):
     """Bound of a closest-hit launch: each input read once and each output
     written once; the box and triangle tests counted by the kernel on
-    these rays."""
+    these rays, ``tri_ops`` operations per triangle test."""
     nbytes = sum(t.numel() * t.element_size() for t in inputs if t is not None)
     n_box, n_tri = (int(x) for x in stats.tolist())
     print(f"    {n_box} box tests, {n_tri} triangle tests "
           f"({n_box / n_rays:.2f} / {n_tri / n_rays:.2f} per ray)")
     return bound(nbytes + n_rays * out_bytes_per_ray,
-                 BOX_OPS * n_box + TRI_OPS * n_tri)
+                 BOX_OPS * n_box + tri_ops * n_tri)
 
 
 def hold_hits(name, got, ref, t_max):
@@ -517,6 +469,122 @@ def golden_check(device, traversal="auto", ndc_fmt=False):
     check(state.history.dtype == torch.float16, "TAA history stays f16")
 
 
+# ---------------------------------------------------------------- phase 6
+def lab_counters():
+    """The launch counters of K6a, K6b and K7, in that order."""
+    from raytracedggx_tpu_torch.ops.lab import fused_lab, fused_mxu
+
+    return (fused_lab.lab_kernel, fused_lab.ls_kernel,
+            fused_mxu.trace_tiles_mxu)
+
+
+def timed_once(fn):
+    """(fn(), its milliseconds between CUDA events) from one run."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def lab_check(bench, name, kw, o, d, t_max):
+    """One kernel-lab variant against its plain version on the check rays,
+    from kbench's reflection t_min: the traversal bar, and for K6a / K6b
+    per-ray node and leaf visits equal on >= 99% of rays (fmad rounding
+    may flip a box test at its edge) and no push onto a full stack; kernel
+    and plain ms, and the bound."""
+    from raytracedggx_tpu_torch.scripts.kbench import T_MIN_REFL, kernel_of
+
+    kernel = kernel_of(kw)
+    label = f"{kernel} {name}"
+    s, L = bench.variant_tree(kw)
+    ref, plain_ms = timed_once(lambda: bench.plain(kw, o, d, t_max,
+                                                   T_MIN_REFL))
+    lab = kernel != "K7"
+    got = bench.launch(kw, o, d, t_max, stats=True if lab else None,
+                       t_min=T_MIN_REFL)
+    torch.cuda.synchronize()
+    i, j = (4, 5) if lab else (3, 4)
+    err = hold_hits(label, (got[0], got[i], got[j]), (ref[0], ref[i], ref[j]),
+                    t_max)
+    if lab:
+        same = float((got[6] == ref[6][:, :2]).all(dim=1).float().mean())
+        check(same >= 0.99, f"{label}: node and leaf visits equal on "
+              f"{same:.5f} of rays")
+        depth, cap = int(ref[6][:, 2].max()), bench.stack(s, kw)
+        check(depth < cap, f"{label}: deepest stack {depth} < {cap}, no "
+              f"push dropped")
+    totals = torch.zeros(2, dtype=torch.int64, device=o.device)
+    bench.launch(kw, o, d, t_max, totals=totals, t_min=T_MIN_REFL)
+    if lab:
+        inputs = (s.nodes, s.tris, s.attrs, bench.boxes(s, kw), s.inv_mats,
+                  o, d, t_max)
+        out_bytes, tri_ops = 32 + (8 if kw.get("stats") else 0), TRI_OPS
+    else:
+        inputs = (s.nodes, bench.coef(s, L), s.inv_mats, o, d, t_max)
+        out_bytes, tri_ops = 20, SLOT_OPS_MXU
+    bound_ms, bound_by = trace_bound(inputs, o.shape[0], out_bytes, totals,
+                                     tri_ops)
+    ms = cuda_ms(lambda: bench.launch(kw, o, d, t_max,
+                                     t_min=T_MIN_REFL), 20)
+    print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
+
+
+def kernel_lab(dev, rng, card):
+    """Phase 6.  Returns ({K6a, K6b, K7: row of the JSON line}, launches
+    of K6a, K6b and K7 over kbench's run)."""
+    from raytracedggx_tpu_torch.scripts.kbench import (VARIANT_KW, Bench,
+                                                       kernel_of)
+
+    t0 = time.perf_counter()
+    bench = Bench(dev, W, H)
+    for leaf in (16, 32, 64):
+        s = bench.tree(leaf)
+        print(f"  leaf {leaf}: {s.num_nodes} nodes, stack {s.stack}")
+    torch.cuda.synchronize()
+    print(f"  kbench sets at {W}x{H}: primary {bench.o_p.shape[0]}, "
+          f"reflection live {int((bench.t_r > 0).sum())}; set-up "
+          f"{time.perf_counter() - t0:.3f} s")
+    n3 = K1_RAYS // 4
+    o_r, d_r = rand_rays(rng, n3, dev)
+    t_r = torch.where(torch.arange(n3, device=dev) % 2 == 0, 1e4, -1.0)
+    o_all = torch.cat([bench.o_p, bench.o_r])
+    d_all = torch.cat([bench.d_p, bench.d_r])
+    t_all = torch.cat([bench.t_p, bench.t_r])
+    pick = torch.as_tensor(rng.choice(o_all.shape[0], K1_RAYS - n3,
+                                      replace=False), device=dev)
+    o = torch.cat([o_r, o_all[pick]]).contiguous()
+    d = torch.cat([d_r, d_all[pick]]).contiguous()
+    t_max = torch.cat([t_r, t_all[pick]]).contiguous()
+    rows, errs = {}, {}
+    for name in LAB_VARIANTS:
+        kw = VARIANT_KW[name]
+        r = lab_check(bench, name, kw, o, d, t_max)
+        k = kernel_of(kw)
+        errs[k] = max(errs.get(k, 0.0), r["max_abs_err"])
+        if LAB_ROWS[k] == name:
+            rows[k] = r
+    for k, r in rows.items():
+        r["max_abs_err"] = errs[k]
+
+    fns = lab_counters()
+    for fn in fns:
+        fn.launches = 0
+    for name in LAB_VARIANTS:
+        r = bench.run(name, VARIANT_KW[name], LAB_FRAMES)
+        if "parity" in r:
+            check(r["parity"] <= 1e-3, f"{name}: t within kbench's gate of "
+                  f"K1 on the reflection set ({r['parity']:.2e}; {card})")
+    counts = [fn.launches for fn in fns]
+    check(all(n > 0 for n in counts), f"kernel lab: launches K6a/K6b/K7 "
+          f"{counts} over kbench's run, each > 0")
+    return rows, counts
+
+
 # ---------------------------------------------------------------- main
 def main():
     if not torch.cuda.is_available():
@@ -537,6 +605,8 @@ def main():
                                                           trace_scene_flat,
                                                           trace_tiles_flat)
     from raytracedggx_tpu_torch.ops.wide import trace_scene4, trace_tiles4
+    from raytracedggx_tpu_torch.scripts.standin import (model_scene,
+                                                        nested_scene)
     from raytracedggx_tpu_torch.trace.geometry import upload_scene
 
     t0 = time.perf_counter()
@@ -640,6 +710,10 @@ def main():
     for trav in ("pallas4", "pallas"):
         golden_check(dev, trav, ndc_fmt=True)
 
+    print("== phase 6: kernel lab")
+    lab_rows, lab_counts = kernel_lab(dev, rng, card)
+    res.update(lab_rows)
+
     # launches: each kernel's count over its own path's run (K1-K3: "wide")
     meta = [
         ("K1 trace_tiles_instanced", "csrc/traverse.cu",
@@ -655,6 +729,12 @@ def main():
          runs["pallas"]["launches"][3]),
         ("K5 trace_tiles4", "csrc/traverse_wide4.cu",
          "raytracedggx_tpu/ops/wide.py:166", runs["pallas4"]["launches"][4]),
+        ("K6a trace_tiles_lab", "csrc/traverse_lab.cu",
+         "raytracedggx_tpu/ops/lab/fused_lab.py:73", lab_counts[0]),
+        ("K6b trace_tiles_lab(leaf_stack=True)", "csrc/traverse_lab.cu",
+         "raytracedggx_tpu/ops/lab/fused_lab.py:471", lab_counts[1]),
+        ("K7 trace_tiles_mxu", "csrc/traverse_mxu.cu",
+         "raytracedggx_tpu/ops/lab/fused_mxu.py:98", lab_counts[2]),
     ]
     kernels = [dict(name=name, route="cuda",
                     source=f"raytracedggx_tpu_torch/{src}", replaces=rep,

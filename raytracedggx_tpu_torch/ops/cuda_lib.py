@@ -49,8 +49,20 @@ SIGNATURES = {
     # out_t out_u out_v out_pos stats stream
     "rtggx_trace_wide4": (_P, _P, _P, _P, _P, _P, _F, _I,
                           _P, _P, _P, _P, _P, _P),
+    # K6a/K6b: nodes num_nodes tris attrs boxes nq inv_mats pre ray_o ray_d
+    # t_max t_min n_rays L stack flags npop threads
+    # out_t out_u out_v out_n out_prim out_inst counts totals stream
+    "rtggx_trace_lab": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _F, _I,
+                        _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P),
+    # K7: nodes coef inv_mats ray_o ray_d t_max t_min n_rays L stack threads
+    # out_t out_u out_v out_slot out_inst totals stream
+    "rtggx_trace_mxu": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P),
     "rtggx_k1_max_stack": (),
     "rtggx_k5_max_stack": (),
+    "rtggx_lab_max_stack": (),
+    "rtggx_lab_smem_rows": (),
 }
 
 

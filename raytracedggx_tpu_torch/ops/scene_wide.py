@@ -20,6 +20,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..bvh.lbvh import build_lbvh
 from ..bvh.sah import build_sah
 from ..trace.traverse import HitRecord
 from .fused import (build_records4_padded, trace_instanced_plain,
@@ -122,12 +123,25 @@ def _assemble(tris, attrs, kind, a_col, b_col, boxes, n_top, top_children,
     return refit_scene_wide(sw, worlds)
 
 
+def _mesh_tree(host_mesh, L, builder):
+    """A mesh's binary tree: binned SAH on the host (``"sah"``), or the
+    Karras LBVH (``"lbvh"``, bvh/lbvh.py, the reference's ``geom.blas``)."""
+    if builder == "sah":
+        return build_sah(host_mesh["positions"], host_mesh["tri"],
+                         chain_cutoff=L)
+    if builder == "lbvh":
+        bvh = build_lbvh(torch.as_tensor(host_mesh["positions"]),
+                         torch.as_tensor(host_mesh["tri"]).reshape(-1))
+        return type(bvh)(*(x.numpy() for x in bvh))
+    raise ValueError(f"builder must be 'sah' or 'lbvh', got {builder!r}")
+
+
 def build_scene_wide(geom, mesh_ids, leaf_size: int = 16, worlds=None,
-                     device=None) -> SceneWideBVH:
+                     device=None, builder: str = "sah") -> SceneWideBVH:
     """geom: trace.geometry.SceneGeometry; mesh_ids: instance -> mesh.
-    Host build of all topology and object-space geometry (binned-SAH
-    subtrees, 4-wide collapse with padded L-slot leaves), then a refit at
-    ``worlds`` (identity by default)."""
+    Host build of all topology and object-space geometry (binned-SAH or
+    LBVH subtrees, 4-wide collapse with padded L-slot leaves), then a
+    refit at ``worlds`` (identity by default)."""
     L = leaf_size
     num_inst = len(mesh_ids)
     assert num_inst < (1 << 11), "instance tag field is 11 bits"
@@ -135,9 +149,8 @@ def build_scene_wide(geom, mesh_ids, leaf_size: int = 16, worlds=None,
     host = {m: {k: getattr(geom.meshes[m], k).cpu().numpy()
                 for k in ("positions", "normals", "tri", "v0", "e1", "e2")}
             for m in mesh_set}
-    mesh_recs = {m: build_records4_padded(
-        build_sah(host[m]["positions"], host[m]["tri"], chain_cutoff=L), L)
-        for m in mesh_set}
+    mesh_recs = {m: build_records4_padded(_mesh_tree(host[m], L, builder), L)
+                 for m in mesh_set}
 
     top_records = _instance_tree(num_inst)
     n_top = len(top_records)

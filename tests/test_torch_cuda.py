@@ -198,3 +198,122 @@ def test_per_mesh_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         wide.trace_tiles4(w4._replace(stack=10 ** 6), o.contiguous(),
                           d.contiguous(), 0.0, 1e4)
+
+
+LAB_CASES = {
+    "fat": dict(),
+    "lean_recip": dict(lean=True, recip=True),
+    "fold_stats": dict(lean=True, fold=True, stats=True),
+    "pre_recip_stats": dict(lean=True, pre=True, recip=True, stats=True),
+    "prefold_t4": dict(lean=True, pre=True, fold=True, tile_s=4, stats=True),
+    "smem_npop4_slim_noinst_unordered": dict(smem_nodes=True, npop=4,
+                                             slim=True, noinst=True,
+                                             ordered=False, stats=True),
+    "sub4_recip_t16": dict(lean=True, sub=4, recip=True, tile_s=16,
+                           stats=True),
+    "npop1_t2": dict(npop=1, tile_s=2, stats=True),
+    "K6b_lean": dict(leaf_stack=True, lean=True, stats=True),
+    "K6b_fat_smem_t32": dict(leaf_stack=True, smem_nodes=True, tile_s=32,
+                             stats=True),
+}
+
+
+def _model_bvh(device, leaf_size):
+    from raytracedggx_tpu_torch.scripts.standin import model_scene
+
+    scene = model_scene(4)                       # 5,120-triangle model
+    sw = build_scene_wide(upload_scene(scene, device), scene.mesh_ids,
+                          leaf_size=leaf_size, device=device)
+    return refit_scene_wide(sw, scene.worlds(0.4).to(device))
+
+
+def _model_rays(device, n=4096):
+    rng = np.random.default_rng(3)
+    o = rng.uniform(-4.0, 4.0, size=(n, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(2.0, 6.0, size=n)
+    d = rng.uniform(-1.5, 1.5, size=(n, 3)).astype(np.float32) - o
+    d[:, 1] += 1.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    t_max = np.where(np.arange(n) % 3 == 0, -1.0, 1e4).astype(np.float32)
+    return tuple(torch.as_tensor(x, device=device) for x in (o, d, t_max))
+
+
+@pytest.mark.parametrize("case", list(LAB_CASES))
+def test_lab_kernels_match_plain(cuda, case):
+    """K6a / K6b against trace_lab_plain on the stand-in model scene:
+    outputs at the traversal bar, per-ray visit counts equal on >= 99% of
+    rays (fmad rounding may flip a box test at its edge)."""
+    from raytracedggx_tpu_torch.ops.lab import fused_lab as lab
+
+    kw = LAB_CASES[case]
+    sw = _model_bvh(cuda, 16)
+    o, d, t_max = _model_rays(cuda)
+    stack = sw.stack * (3 if kw.get("leaf_stack") else 1)
+    boxes = lab.sub_tris(sw, kw["sub"]) if kw.get("sub") else None
+    counter = lab.ls_kernel if kw.get("leaf_stack") else lab.lab_kernel
+    n0 = counter.launches
+    totals = torch.zeros(2, dtype=torch.int64, device=cuda)
+    got = lab.trace_tiles_lab(sw.nodes, sw.tris, sw.inv_mats, o, d, 0.0,
+                              t_max, 16, stack=stack, attrs=sw.attrs,
+                              boxes=boxes, totals=totals, **kw)
+    plain_kw = {k: v for k, v in kw.items()
+                if k in ("npop", "ordered", "lean", "leaf_stack", "slim",
+                         "sub", "noinst")}
+    ref = lab.trace_lab_plain(sw.nodes, sw.tris, sw.attrs, sw.inv_mats, o,
+                              d, 0.0, t_max, 16, stack, boxes=boxes,
+                              **plain_kw)
+    torch.cuda.synchronize()
+    assert counter.launches == n0 + 1
+    assert int(totals[0]) > 0 and int(totals[1]) > 0
+    _hold(got[0], got[4], ref[0], ref[4], t_max, got[5], ref[5])
+    # u, v and the normal where the ids agree: u = u*det / det amplifies the
+    # kernel's fmad rounding at grazing hits, so >= 99% within 1e-4
+    agree = (got[4] == ref[4]) & (got[5] == ref[5]) & (ref[4] >= 0)
+    for a, b in zip(got[1:4], ref[1:4]):
+        err = (a[agree] - b[agree]).abs().reshape(int(agree.sum()), -1)
+        assert float((err <= 1e-4).all(dim=1).float().mean()) >= 0.99
+    assert int(ref[6][:, 2].max()) < stack          # no push was dropped
+    st = got[6]
+    if not kw.get("stats"):
+        assert st is None
+        return
+    assert st.shape == (4096, 2) and not bool(st[t_max < 0].any())
+    assert float((st == ref[6][:, :2]).all(dim=1).float().mean()) >= 0.99
+
+
+@pytest.mark.parametrize("leaf_size", [16, 32])
+def test_mxu_kernel_matches_plain(cuda, leaf_size):
+    from raytracedggx_tpu_torch.ops.lab import fused_mxu as mxu
+
+    sw = _model_bvh(cuda, leaf_size)
+    o, d, t_max = _model_rays(cuda)
+    coef = mxu.mxu_stream(sw)
+    n0 = mxu.trace_tiles_mxu.launches
+    got = mxu.trace_tiles_mxu(sw.nodes, coef, sw.inv_mats, sw.inst_slots, o,
+                              d, 0.0, t_max, leaf_size, sw.stack)
+    ref = mxu.trace_mxu_plain(coef, sw.inv_mats, sw.inst_slots, o, d, 0.0,
+                              t_max, leaf_size)
+    k1 = fused.trace_tiles_instanced(sw.nodes, sw.tris, sw.inv_mats,
+                                     sw.inst_slots, o, d, 0.0, t_max,
+                                     leaf_size, sw.stack)
+    torch.cuda.synchronize()
+    assert mxu.trace_tiles_mxu.launches == n0 + 1
+    _hold(got[0], got[3], ref[0], ref[3], t_max, got[4], ref[4])
+    _hold(got[0], got[3], k1[0], k1[3], t_max, got[4], k1[4])
+
+
+def test_lab_wrappers_refuse_bad_inputs(cuda):
+    from raytracedggx_tpu_torch.ops.lab import fused_lab as lab
+    from raytracedggx_tpu_torch.ops.lab import fused_mxu as mxu
+
+    sw = _model_bvh(cuda, 16)
+    o, d, t_max = _model_rays(cuda, 64)
+    with pytest.raises(ValueError):                  # above the kernel's
+        lab.trace_tiles_lab(sw.nodes, sw.tris, sw.inv_mats, o, d, 0.0,
+                            t_max, 16, stack=10 ** 6, attrs=sw.attrs)
+    with pytest.raises(ValueError):                  # attrs on the CPU
+        lab.trace_tiles_lab(sw.nodes, sw.tris, sw.inv_mats, o, d, 0.0,
+                            t_max, 16, attrs=sw.attrs.cpu())
+    with pytest.raises(ValueError):                  # coef of another L
+        mxu.trace_tiles_mxu(sw.nodes, mxu.mxu_stream(sw), sw.inv_mats,
+                            sw.inst_slots, o, d, 0.0, t_max, 8)
