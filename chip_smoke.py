@@ -8,14 +8,17 @@ Phases (each prints its own lines; any failure ends the run non-zero):
  1. build the CUDA kernels from csrc/ (one nvcc per source, sm_90a) and
     load them;
  2. the scene: ground cube + a deterministic ~82k-triangle displaced
-    icosphere standing in for the bunny; its instanced scene BVH (L=64) for
-    traversal="wide" and its per-mesh trees (leaf 8) for "pallas" (FlatBVH)
-    and "pallas4" (WideBVH);
+    icosphere standing in for the bunny; its instanced scene BVH (the
+    renderer's leaf size, 8) for traversal="wide" and its per-mesh trees
+    (leaf 8) for "pallas" (FlatBVH) and "pallas4" (WideBVH);
  3. each kernel against its plain torch version on the card, at the shapes
-    the frame gives it: K1, K4 and K5 on 16,384 primary and reflection rays
-    of the "wide" frame (K4/K5 in the model instance's object space), and
-    on the 9-instance nested scene (K4/K5 through their per-instance loop);
-    K2/K3 on 1280x720 G-buffers;
+    the frame gives it: K1 at the renderer's leaf size and at 64 on the
+    frame's two full waves (921,600 primary rays in screen-block order,
+    921,600 sorted reflection rays, as the renderer hands them to K1), on
+    16,384 rays drawn from them, and on the 9-instance nested scene; K4 and
+    K5 on 16,384 rays of the frame in the model instance's object space
+    and through their per-instance loop on the nested scene; K2/K3 on
+    1280x720 G-buffers, both axes;
  4. the paths at 1280x720, each with every launch count set to 0 just
     before it and read just after: "wide" (3 warm-up, 60 timed frames, then
     10 at metallic 0.5), then "pallas4" and "pallas" (3 warm-up, 20 timed,
@@ -31,7 +34,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     kbench's own run of those variants on both full sets with its gate
     against K1.
 The second-to-last line is a JSON summary of the kernels (launches on
-their path, parity error, kernel / plain times, the bound); the last line
+their path, parity error, kernel / plain times, the bound; K1's times are
+of the full primary wave, K2's and K3's of the row pass); the last line
 is {"ok": true, "device": {...}}.  Needs CUDA: without it this exits
 non-zero and prints no result.  Imports nothing of JAX or the JAX package.
 """
@@ -57,6 +61,7 @@ TIMED_FRAMES = 60
 METAL_FRAMES = 10
 PER_MESH_TIMED, PER_MESH_METAL = 20, 5
 K1_RAYS = 16384
+K1_LEAVES = (8, 64)     # the renderer's leaf size (checked), and the old one
 T_MIN_SECONDARY = 1e-5
 # the bound: H100 SXM data sheet (dense fp32 outside the tensor cores,
 # HBM3), and fp32 operations per test as the kernels' sources count them
@@ -81,18 +86,18 @@ def check(ok, msg):
 
 
 def cuda_ms(fn, reps):
-    """Median milliseconds of fn() between CUDA events (after a warm-up)."""
+    """Milliseconds per call of ``reps`` calls of fn() run back to back
+    between one pair of CUDA events (after a warm-up), so the wrappers'
+    host time overlaps the kernels' as in a frame."""
     fn()
-    times = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
     for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
         fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 # ---------------------------------------------------------------- phase 0
@@ -124,7 +129,7 @@ def build_kernels():
 
 
 # ---------------------------------------------------------------- phase 2
-def scene_bvh(scene, angle, device, leaf_size=64):
+def scene_bvh(scene, angle, device, leaf_size):
     from raytracedggx_tpu_torch.ops.scene_wide import (build_scene_wide,
                                                        refit_scene_wide)
     from raytracedggx_tpu_torch.trace.geometry import upload_scene
@@ -144,32 +149,6 @@ def rand_rays(rng, n, device):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     return (torch.as_tensor(o, device=device),
             torch.as_tensor(d, device=device))
-
-
-def frame_rays(renderer):
-    """Primary and reflection rays of the renderer's first frame and the
-    BVH refit for it: (sw, o (2R, 3), d (2R, 3), t_max (2R,))."""
-    from raytracedggx_tpu_torch.ops.scene_wide import (refit_scene_wide,
-                                                       trace_scene_wide_fused)
-    from raytracedggx_tpu_torch.trace import raygen
-
-    cfg = renderer.config
-    state = renderer.init_state()
-    consts = renderer._constants(state, state.angle)
-    sw = refit_scene_wide(renderer.swide, consts.worlds)
-
-    def trace(o, d, t_min, t_max):
-        return trace_scene_wide_fused(sw, o, d, t_min, t_max)
-
-    _, p_near, ray_d = raygen.primary_rays(consts, cfg.width, cfg.height)
-    surf = raygen.primary_surface(consts, renderer.materials, cfg.width,
-                                  cfg.height, trace, renderer.ray_order)
-    xi = raygen.pixel_samples(cfg.width, cfg.height, consts.frame_index,
-                              p_near.device)
-    _, _, r_dir, tmax_r = raygen.reflection_rays(surf, xi)
-    t_prim = torch.full_like(tmax_r, raygen.T_MAX)
-    return (sw, torch.cat([p_near, surf["p"]]), torch.cat([ray_d, r_dir]),
-            torch.cat([t_prim, tmax_r]))
 
 
 def bound(nbytes, ops):
@@ -225,30 +204,34 @@ def time_pair(name, kern, plain, kern_reps=20, plain_reps=3):
     return ms, plain_ms
 
 
-def k1_check(name, sw, o, d, t_max, t_min=0.0):
+def k1_check(name, sw, o, d, t_max, t_min=0.0, reps=20):
     """K1 against its plain version on the same rays; returns a dict of
-    max |dt| over hits, kernel and plain ms, and the bound."""
+    max |dt| over hits, kernel and plain ms, and the bound.  The plain
+    version runs once (it is timed on that run)."""
     from raytracedggx_tpu_torch.ops.fused import (trace_instanced_plain,
                                                   trace_tiles_instanced)
 
+    name = f"K1 L{sw.leaf_size} {name}"
+
     def kern(stats=None):
-        return trace_tiles_instanced(sw.nodes, sw.tris, sw.inv_mats,
+        return trace_tiles_instanced(sw.nodes, sw.tris4, sw.inv_mats,
                                      sw.inst_slots, o, d, t_min, t_max,
-                                     sw.leaf_size, sw.stack, stats)
+                                     sw.leaf_size, sw.k1_stack, stats)
 
-    def plain():
-        return trace_instanced_plain(sw.tris, sw.inv_mats, sw.inst_slots, o,
-                                     d, t_min, t_max)
-
-    got, ref = kern(), plain()
+    ref, plain_ms = timed_once(lambda: trace_instanced_plain(
+        sw.tris, sw.inv_mats, sw.inst_slots, o, d, t_min, t_max))
+    got = kern()
     torch.cuda.synchronize()
-    err = hold_hits(f"K1 {name}", (got[0], got[3], got[4]),
-                    (ref[0], ref[3], ref[4]), t_max)
+    err = hold_hits(name, (got[0], got[3], got[4]), (ref[0], ref[3], ref[4]),
+                    t_max)
+    del ref
     stats = torch.zeros(2, dtype=torch.int64, device=o.device)
     kern(stats)
     bound_ms, bound_by = trace_bound(
-        (sw.nodes, sw.tris, sw.inv_mats, o, d, t_max), o.shape[0], 20, stats)
-    ms, plain_ms = time_pair(f"K1 {name}", kern, plain)
+        (sw.nodes, sw.tris4, sw.inv_mats, o, d, t_max), o.shape[0], 20, stats)
+    ms = cuda_ms(kern, reps)
+    print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
 
@@ -292,16 +275,18 @@ def scene_loop_check(name, trees, scene_fn, tlas, o, d, t_max):
     return err
 
 
-def valid_taps(width, height):
-    """In-image taps of one horizontal 33-tap pass over width x height."""
-    x = np.arange(width)
-    per_x = np.minimum(x + 16, width - 1) - np.maximum(x - 16, 0) + 1
-    return int(per_x.sum()) * height
+def valid_taps(along, across):
+    """In-image taps of one 33-tap pass over an image ``along`` pixels
+    long in the pass axis and ``across`` wide."""
+    x = np.arange(along)
+    per_x = np.minimum(x + 16, along - 1) - np.maximum(x - 16, 0) + 1
+    return int(per_x.sum()) * across
 
 
 def spatial_check(aux_out, width, height):
     """K2 and K3 against their plain versions on a frame's G-buffers,
-    both axes; returns {name: dict(max_abs_err, ms, plain_ms, bound)}."""
+    both axes, each timed with its bound; returns {name: dict(max_abs_err,
+    ms, plain_ms, bound)} with the row pass's times."""
     from raytracedggx_tpu_torch.denoise import tm
     from raytracedggx_tpu_torch.ops.spatial_cuda import (
         diffuse_pass, diffuse_pass_plain, reflection_pass,
@@ -315,15 +300,18 @@ def spatial_check(aux_out, width, height):
     check(bool(gate.any()), "the frame has live diffuse pixels for K3")
     res = {}
     # fp32 operations per in-image tap, counted in csrc/spatial.cu: normal
-    # dot 11, depth weight 5, accumulate 7; K2 adds the Gaussian 5,
-    # roughness weight 10, hit gate 1 and pow 7, K3 its gate 2 and pow 5
+    # dot 5, clip 2, depth weight 5, accumulate 7; K2 adds pow 7, the
+    # roughness weight 10 and 3 products (its Gaussian is a table read, its
+    # gate folded into the staged normal): 39; K3 adds pow 5 and 1 product
+    # (PR 1 counted 46 and 30 for the kernels that decoded and divided per
+    # tap)
     cases = {
-        "K2": (tm(aux_out["refl"]).contiguous(), hit, rough, 46,
+        "K2": (tm(aux_out["refl"]).contiguous(), hit, rough, 39,
                lambda s, ax: reflection_pass(s, normal, rough, depth, width,
                                              height, ax),
                lambda s, ax: reflection_pass_plain(s, normal, rough, depth,
                                                    width, height, ax)),
-        "K3": (tm(aux_out["diff"]).contiguous(), gate, metal, 30,
+        "K3": (tm(aux_out["diff"]).contiguous(), gate, metal, 25,
                lambda s, ax: diffuse_pass(s, normal, metal, depth, ax),
                lambda s, ax: diffuse_pass_plain(s, normal, metal, depth, ax)),
     }
@@ -331,6 +319,8 @@ def spatial_check(aux_out, width, height):
         h_ref = plain(src, 1)
         h_src = torch.where(mask, h_ref, 0.0).contiguous()
         errs = []
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (src, normal, aux, depth, src))
         for ax, s in ((1, src), (0, h_src)):
             got, ref = kern(s, ax), plain(s, ax)
             err = (got - ref).abs()
@@ -338,14 +328,17 @@ def spatial_check(aux_out, width, height):
             errs.append(float(err.max()))
             check(ok, f"{name} axis {ax}: atol 2e-5 rtol 1e-4 (max err "
                   f"{errs[-1]:.3e})")
-        ms, plain_ms = time_pair(f"{name} one pass", lambda: kern(src, 1),
-                                 lambda: plain(src, 1), plain_reps=5)
-        nbytes = sum(t.numel() * t.element_size()
-                     for t in (src, normal, aux, depth, src))
-        bound_ms, bound_by = bound(nbytes, tap_ops * valid_taps(width,
-                                                                height))
-        res[name] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by)
+            ms, plain_ms = time_pair(f"{name} axis {ax} one pass",
+                                     lambda: kern(s, ax), lambda: plain(s, ax),
+                                     plain_reps=5)
+            along, across = (width, height) if ax == 1 else (height, width)
+            bound_ms, bound_by = bound(nbytes,
+                                       tap_ops * valid_taps(along, across))
+            print(f"    bound {bound_ms:.6f} ms ({bound_by})")
+            if ax == 1:
+                res[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                 bound_by=bound_by)
+        res[name]["max_abs_err"] = max(errs)
     return res
 
 
@@ -544,7 +537,8 @@ def kernel_lab(dev, rng, card):
     bench = Bench(dev, W, H)
     for leaf in (16, 32, 64):
         s = bench.tree(leaf)
-        print(f"  leaf {leaf}: {s.num_nodes} nodes, stack {s.stack}")
+        print(f"  leaf {leaf}: {s.num_nodes} nodes, stack {s.stack}, K1 "
+              f"stack bound {s.k1_stack}")
     torch.cuda.synchronize()
     print(f"  kbench sets at {W}x{H}: primary {bench.o_p.shape[0]}, "
           f"reflection live {int((bench.t_r > 0).sum())}; set-up "
@@ -600,11 +594,14 @@ def main():
     print("== phase 2: scene")
     from raytracedggx_tpu_torch.bvh import build_tlas
     from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
-    from raytracedggx_tpu_torch.ops.scene_wide import trace_scene_wide_fused
+    from raytracedggx_tpu_torch.ops.cuda_lib import load_library
+    from raytracedggx_tpu_torch.ops.scene_wide import (refit_scene_wide,
+                                                       trace_scene_wide_fused)
     from raytracedggx_tpu_torch.ops.traverse_cuda import (inv_rows,
                                                           trace_scene_flat,
                                                           trace_tiles_flat)
     from raytracedggx_tpu_torch.ops.wide import trace_scene4, trace_tiles4
+    from raytracedggx_tpu_torch.scripts.kprofile import frame_waves
     from raytracedggx_tpu_torch.scripts.standin import (model_scene,
                                                         nested_scene)
     from raytracedggx_tpu_torch.trace.geometry import upload_scene
@@ -614,9 +611,11 @@ def main():
     renderer = Renderer(scene, device=dev)
     sw = renderer.swide
     n_tris = sum(m.num_triangles for m in scene.meshes)
+    K1_MAX_STACK = load_library().rtggx_k1_max_stack()
     print(f"  triangles {n_tris}, stream slots {sw.tris.shape[0]}, leaves "
           f"{sw.tris.shape[0] // sw.leaf_size}, nodes {sw.num_nodes}, "
-          f"stack {sw.stack}, L {sw.leaf_size}; renderer set-up "
+          f"K1 stack bound {sw.k1_stack} of {K1_MAX_STACK}, L "
+          f"{sw.leaf_size}; renderer set-up "
           f"{time.perf_counter() - t0:.3f} s")
     per_mesh = {}
     for trav in ("pallas4", "pallas"):
@@ -637,17 +636,35 @@ def main():
     n3 = K1_RAYS // 4
     o_r, d_r = rand_rays(rng, n3, dev)
     t_r = torch.where(torch.arange(n3, device=dev) % 2 == 0, 1e4, -1.0)
-    sw0, o_f, d_f, t_f = frame_rays(renderer)
+    sw0, worlds_f, waves = frame_waves(renderer)   # scripts/kprofile.py
+    check(len(waves) == 2 and all(w[0].shape[0] == W * H for w in waves),
+          f"the frame's K1 waves: {[w[0].shape[0] for w in waves]} rays")
+    o_f = torch.cat([w[0] for w in waves])
+    d_f = torch.cat([w[1] for w in waves])
+    t_f = torch.cat([w[3] for w in waves])
     pick = torch.as_tensor(rng.choice(o_f.shape[0], K1_RAYS - n3,
                                       replace=False), device=dev)
     o = torch.cat([o_r, o_f[pick]]).contiguous()
     d = torch.cat([d_r, d_f[pick]]).contiguous()
     t_max = torch.cat([t_r, t_f[pick]]).contiguous()
-    res = {"K1": k1_check("model scene", sw0, o, d, t_max)}
     o9, d9 = rand_rays(rng, K1_RAYS, dev)
     t9 = torch.where(torch.arange(K1_RAYS, device=dev) % 2 == 0, 1e4, -1.0)
     nested = nested_scene()
-    k1_check("9-instance scene", scene_bvh(nested, 1.3, dev), o9, d9, t9)
+    k1_rows = {}
+    for leaf in K1_LEAVES:
+        sw_l = sw0 if leaf == sw0.leaf_size else refit_scene_wide(
+            scene_bvh(scene, 0.0, dev, leaf), worlds_f)
+        print(f"  K1 at L{leaf}: {sw_l.num_nodes} nodes, stack bound "
+              f"{sw_l.k1_stack} of {K1_MAX_STACK}")
+        rows = [k1_check("check rays", sw_l, o, d, t_max),
+                k1_check("9-instance scene",
+                         scene_bvh(nested, 1.3, dev, leaf), o9, d9, t9)]
+        for label, (wo, wd, wt_min, wt_max) in zip(
+                ("primary wave", "reflection wave"), waves):
+            rows.append(k1_check(label, sw_l, wo, wd, wt_max, wt_min))
+        k1_rows[leaf] = rows
+    res = {"K1": dict(k1_rows[sw0.leaf_size][2], max_abs_err=max(
+        r["max_abs_err"] for rows in k1_rows.values() for r in rows))}
 
     # K4/K5: 8,192 primary and 8,192 reflection rays of the "wide" frame,
     # in the model instance's object space, at the reflection wave's
@@ -673,8 +690,7 @@ def main():
     alive = torch.arange(K1_RAYS, device=dev) % 2 == 0
     o_m, d_m = o_f[pick].contiguous(), d_f[pick].contiguous()
     t_m = torch.where(alive, t_f[pick], -1.0).contiguous()
-    consts = renderer._constants(renderer.init_state(), np.float32(0.0))
-    inv_model = inv_rows(consts.inv_worlds)[model].contiguous()
+    inv_model = inv_rows(torch.linalg.inv(worlds_f))[model].contiguous()
     res["K4"] = per_mesh_check("K4 model mesh", flat, trace_tiles_flat, o_m,
                                d_m, T_MIN_SECONDARY, t_m, inv_model)
     res["K5"] = per_mesh_check("K5 model mesh", wide, trace_tiles4, o_m,

@@ -1,6 +1,7 @@
 // Ray set-up, slab test and Moller-Trumbore test shared by the traversal
 // kernels K1 (traverse.cu), K4 (traverse_flat.cu) and K5
-// (traverse_wide4.cu).  The comparisons are those of the TPU kernels, so
+// (traverse_wide4.cu).  Each test takes its operands as values (K1 reads
+// them as float4) or from a row in memory.  The comparisons are those of the TPU kernels, so
 // hits and exact-t ties resolve as there; no fast math, because empty
 // boxes (lo = +inf, hi = -inf), NaN padding and degenerate triangles
 // (det = 0 -> NaN) must fail every comparison.
@@ -45,33 +46,41 @@ __device__ __forceinline__ Ray make_ray(const float* __restrict__ m,
   return r;
 }
 
-// Slab test of the box b = lo.xyz, hi.xyz: (tn <= tf) & (tf >= t_min) &
+// Slab test of the box lo, hi: (tn <= tf) & (tf >= t_min) &
 // (tn <= best_t); tn is the entry distance.
-__device__ __forceinline__ bool box_hit(const float* __restrict__ b,
+__device__ __forceinline__ bool box_hit(float lox, float loy, float loz,
+                                        float hix, float hiy, float hiz,
                                         const Ray& r, float t_min,
                                         float best_t, float& tn) {
-  const float t0x = (__ldg(b + 0) - r.ox) * r.ix;
-  const float t1x = (__ldg(b + 3) - r.ox) * r.ix;
-  const float t0y = (__ldg(b + 1) - r.oy) * r.iy;
-  const float t1y = (__ldg(b + 4) - r.oy) * r.iy;
-  const float t0z = (__ldg(b + 2) - r.oz) * r.iz;
-  const float t1z = (__ldg(b + 5) - r.oz) * r.iz;
+  const float t0x = (lox - r.ox) * r.ix;
+  const float t1x = (hix - r.ox) * r.ix;
+  const float t0y = (loy - r.oy) * r.iy;
+  const float t1y = (hiy - r.oy) * r.iy;
+  const float t0z = (loz - r.oz) * r.iz;
+  const float t1z = (hiz - r.oz) * r.iz;
   tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
   const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
   return (tn <= tf) && (tf >= t_min) && (tn <= best_t);
+}
+
+// The same test on the box b = lo.xyz, hi.xyz in memory.
+__device__ __forceinline__ bool box_hit(const float* __restrict__ b,
+                                        const Ray& r, float t_min,
+                                        float best_t, float& tn) {
+  return box_hit(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3),
+                 __ldg(b + 4), __ldg(b + 5), r, t_min, best_t, tn);
 }
 
 // Moller-Trumbore against the triangle row tr = v0, e1, e2 with an exact
 // 1/det.  On u >= 0, v >= 0, u + v <= 1, t_min <= t <= best_t it takes
 // (t, u, v) into (best_t, best_u, best_v) and returns true, so of two hits
 // at an equal t the later one tested wins.
-__device__ __forceinline__ bool tri_hit(const float* __restrict__ tr,
+__device__ __forceinline__ bool tri_hit(float v0x, float v0y, float v0z,
+                                        float e1x, float e1y, float e1z,
+                                        float e2x, float e2y, float e2z,
                                         const Ray& r, float t_min,
                                         float& best_t, float& best_u,
                                         float& best_v) {
-  const float v0x = __ldg(tr + 0), v0y = __ldg(tr + 1), v0z = __ldg(tr + 2);
-  const float e1x = __ldg(tr + 3), e1y = __ldg(tr + 4), e1z = __ldg(tr + 5);
-  const float e2x = __ldg(tr + 6), e2y = __ldg(tr + 7), e2z = __ldg(tr + 8);
   const float px = r.dy * e2z - r.dz * e2y;
   const float py = r.dz * e2x - r.dx * e2z;
   const float pz = r.dx * e2y - r.dy * e2x;
@@ -91,6 +100,16 @@ __device__ __forceinline__ bool tri_hit(const float* __restrict__ tr,
     return true;
   }
   return false;
+}
+
+// The same test on the triangle row tr = v0, e1, e2 in memory.
+__device__ __forceinline__ bool tri_hit(const float* __restrict__ tr,
+                                        const Ray& r, float t_min,
+                                        float& best_t, float& best_u,
+                                        float& best_v) {
+  return tri_hit(__ldg(tr + 0), __ldg(tr + 1), __ldg(tr + 2), __ldg(tr + 3),
+                 __ldg(tr + 4), __ldg(tr + 5), __ldg(tr + 6), __ldg(tr + 7),
+                 __ldg(tr + 8), r, t_min, best_t, best_u, best_v);
 }
 
 }  // namespace rtggx

@@ -4,15 +4,17 @@
 // (launched by trace_tiles_instanced), lean layout.
 //
 // Contract (identical outputs to the lean TPU kernel):
-//   * nodes (N, 36) f32 rows: 4 child boxes (lo.xyz, hi.xyz) at 6k, child
-//     kind at 24+k (0 empty / 1 leaf / 2 internal / 3 instance entry),
-//     child address at 28+k (leaf ordinal or node index), instance tag
-//     at 32+k for kind 3.  The first rows are the top tree over instance
-//     WORLD boxes, the rest shared OBJECT-space mesh subtrees.
-//   * tris (S, 9) f32 stream slots v0 e1 e2 in object space; leaf j owns
-//     slots [j*L, (j+1)*L); padding slots carry v0 = NaN and never hit.
-//   * inv_mats (1+I, 12): 3x3 row-major + translation of each tag's
-//     inverse world; tag 0 is the identity (world space).
+//   * nodes (N, 36) f32 rows, read as nine float4: 4 child boxes (lo.xyz,
+//     hi.xyz) at 6k, child kind at 24+k (0 empty / 1 leaf / 2 internal /
+//     3 instance entry), child address at 28+k (leaf ordinal or node
+//     index), instance tag at 32+k for kind 3.  The first rows are the top
+//     tree over instance WORLD boxes, the rest shared OBJECT-space mesh
+//     subtrees.
+//   * tris4 (S, 12) f32 stream slots, three float4 v0 _ e1 _ e2 _ in
+//     object space; leaf j owns slots [j*L, (j+1)*L) for any L given at
+//     run time; padding slots carry v0 = NaN and never hit.
+//   * inv_mats (1+I, 12), three float4 per row: 3x3 row-major +
+//     translation of each tag's inverse world; tag 0 is the identity.
 //   * stack entries pack node | tag << 20; kind-3 children switch to their
 //     tag, kind-2 children inherit the current one.  On a tag change the
 //     ray goes to object space as o*M + t and d*M with the direction left
@@ -26,32 +28,93 @@
 //     dead and return at once.
 //   * stats (null, or 2 int64): child box tests and triangle tests, summed.
 //
-// What bounds it on this card: latency of dependent loads.  Each step of
-// a ray pops a node (144 B) and, at leaves, streams 9*L floats; the
-// arithmetic is a few hundred FLOPs per leaf.  The TPU kernel ran a
-// 1024-ray packet over one shared SMEM stack, so every ray paid for the
-// union of its packet's node and leaf visits.  Here each thread owns one
-// ray and its own stack (local memory, L1-resident), so a ray visits only
-// the nodes its own box tests admit; coherence within a warp comes from
-// the caller's ray order (screen blocks for primary rays, direction
-// octant + Morton for bounces), which keeps neighbouring threads on the
-// same node and leaf rows so the loads hit L1.  Children are pushed far
-// to near so the nearest is popped first and best_t shrinks early.
+// What bounds it on this card: the latency of dependent loads.  A ray
+// pops a node, and only the node's four boxes say which rows come next,
+// so no tile can be fetched ahead (no TMA) and there is no matrix product
+// (no wgmma); the arithmetic is 25 operations per box and 51 per
+// triangle.  The TPU kernel ran a 1024-ray packet over one shared SMEM
+// stack, so every ray paid for the union of its packet's visits.  Here
+// each thread owns one ray, and the design spends what the card offers on
+// the loads and on warps in flight:
+//   * a leaf size chosen on this card (RenderConfig.wide_leaf_size, 8):
+//     small leaves trade a few more node visits for far fewer triangle
+//     tests, and any L still works;
+//   * 16-byte loads: a node is nine float4 (144 B, 16-byte aligned rows),
+//     a triangle three, the inverse world three.  A node's loads go out
+//     before a tag switch's transform, and a leaf's next slot is loaded
+//     while the current one is tested, so a leaf costs about one round
+//     trip to the cache, not two per triangle;
+//   * the stack in shared memory, [entry][thread] so that the 32 threads
+//     of a warp touch 32 banks, sized at launch from the tree's bound
+//     (3 * depth + 1, at most the compiled 64); the wrapper refuses a
+//     deeper tree, so no push is ever dropped.  No array is indexed at run
+//     time in local memory: the four children live in registers, sorted
+//     by a 5-exchange network, and leaves are walked from a bit mask;
+//   * near-first order: the four boxes are tested against best_t at the
+//     pop; the node's leaves run in child order, each while its entry
+//     distance still passes the shrinking best_t; the internal children
+//     that still pass are pushed far to near, so the nearest is popped
+//     next.
+// Coherence within a warp comes from the caller's ray order (screen
+// blocks for primary rays, direction octant + Morton for bounces).  No
+// fast math: NaN pads and empty boxes must fail every comparison.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 
 #include "ray.cuh"
 
-#define K1_MAX_STACK 256
+#define K1_THREADS 128
+#define K1_MAX_STACK 64
 #define K1_TAG_SHIFT 20
 #define K1_NODE_MASK 0xFFFFF
 
 namespace {
 
-__global__ void __launch_bounds__(128)
-trace_instanced_kernel(const float* __restrict__ nodes,
-                       const float* __restrict__ tris,
-                       const float* __restrict__ inv_mats,
+__device__ __forceinline__ float lane(const float4& v, int k) {
+  return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+}
+
+// rtggx::make_ray with the inverse world read as three float4.
+__device__ __forceinline__ rtggx::Ray object_ray(const float4* __restrict__ m,
+                                                 float ox, float oy, float oz,
+                                                 float dx, float dy,
+                                                 float dz) {
+  const float4 a = __ldg(m), b = __ldg(m + 1), c = __ldg(m + 2);
+  rtggx::Ray r;
+  r.ox = ox * a.x + oy * a.w + oz * b.z + c.y;
+  r.oy = ox * a.y + oy * b.x + oz * b.w + c.z;
+  r.oz = ox * a.z + oy * b.y + oz * c.x + c.w;
+  r.dx = dx * a.x + dy * a.w + dz * b.z;
+  r.dy = dx * a.y + dy * b.x + dz * b.w;
+  r.dz = dx * a.z + dy * b.y + dz * c.x;
+  r.ix = rtggx::safe_inv(r.dx);
+  r.iy = rtggx::safe_inv(r.dy);
+  r.iz = rtggx::safe_inv(r.dz);
+  return r;
+}
+
+// one exchange of the sorting network: descending keys
+__device__ __forceinline__ void exchange(float& ka, int& va, float& kb,
+                                         int& vb) {
+  if (ka < kb) {
+    const float k = ka;
+    ka = kb;
+    kb = k;
+    const int v = va;
+    va = vb;
+    vb = v;
+  }
+}
+
+__device__ __forceinline__ unsigned warp_sum(unsigned x) {
+  return __reduce_add_sync(0xFFFFFFFFu, x);
+}
+
+__global__ void __launch_bounds__(K1_THREADS)
+trace_instanced_kernel(const float4* __restrict__ nodes,
+                       const float4* __restrict__ tris,
+                       const float4* __restrict__ inv_mats,
                        const float* __restrict__ ray_o,
                        const float* __restrict__ ray_d,
                        const float* __restrict__ t_max, float t_min,
@@ -60,85 +123,130 @@ trace_instanced_kernel(const float* __restrict__ nodes,
                        float* __restrict__ out_v, int* __restrict__ out_slot,
                        int* __restrict__ out_inst,
                        unsigned long long* __restrict__ stats) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rays) return;
-  const float wox = ray_o[3 * r], woy = ray_o[3 * r + 1], woz = ray_o[3 * r + 2];
-  const float wdx = ray_d[3 * r], wdy = ray_d[3 * r + 1], wdz = ray_d[3 * r + 2];
-  float best_t = t_max[r], best_u = 0.0f, best_v = 0.0f;
-  int best_slot = -1, best_inst = -1;
-  unsigned long long n_box = 0, n_tri = 0;
+  extern __shared__ int stack_smem[];  // [entry][thread]
+  int* const stack = stack_smem + threadIdx.x;
+  const int r = blockIdx.x * K1_THREADS + threadIdx.x;
+  unsigned n_box = 0, n_tri = 0;  // this ray's tests
 
-  if (best_t >= 0.0f) {  // t_max < 0: dead ray, no traversal
-    int stack[K1_MAX_STACK];
-    int sp = 0;
-    stack[sp++] = 0;  // root of the top tree, tag 0
-    int cur_tag = -1;
-    rtggx::Ray ro;
-    while (sp > 0) {
-      const int e = stack[--sp];
-      const int idx = e & K1_NODE_MASK;
-      const int tag = e >> K1_TAG_SHIFT;
-      if (tag != cur_tag) {
-        ro = rtggx::make_ray(inv_mats + 12 * tag, wox, woy, woz, wdx, wdy, wdz);
-        cur_tag = tag;
-      }
-      const float* __restrict__ nd = nodes + (size_t)idx * 36;
-      float keys[4];
-      int vals[4];
-      int n_push = 0;
-      for (int k = 0; k < 4; ++k) {
-        const int kind = (int)__ldg(nd + 24 + k);
-        if (kind == 0) continue;
-        ++n_box;
-        float tn;
-        if (!rtggx::box_hit(nd + 6 * k, ro, t_min, best_t, tn)) continue;
-        const int a = (int)__ldg(nd + 28 + k);
-        if (kind == 1) {
-          const float* __restrict__ leaf = tris + (size_t)a * L * 9;
+  if (r < n_rays) {
+    const float wox = ray_o[3 * r], woy = ray_o[3 * r + 1], woz = ray_o[3 * r + 2];
+    const float wdx = ray_d[3 * r], wdy = ray_d[3 * r + 1], wdz = ray_d[3 * r + 2];
+    float best_t = t_max[r], best_u = 0.0f, best_v = 0.0f;
+    int best_slot = -1, best_inst = -1;
+
+    if (best_t >= 0.0f) {  // t_max < 0: dead ray, no traversal
+      int sp = 0;
+      stack[K1_THREADS * sp++] = 0;  // root of the top tree, tag 0
+      int cur_tag = -1;
+      rtggx::Ray ro;
+      while (sp > 0) {
+        const int e = stack[K1_THREADS * --sp];
+        const int idx = e & K1_NODE_MASK;
+        const int tag = e >> K1_TAG_SHIFT;
+        // the node's loads first: they do not wait for a tag switch
+        const float4* __restrict__ nd = nodes + (size_t)idx * 9;
+        const float4 b0 = __ldg(nd), b1 = __ldg(nd + 1), b2 = __ldg(nd + 2);
+        const float4 b3 = __ldg(nd + 3), b4 = __ldg(nd + 4), b5 = __ldg(nd + 5);
+        const float4 kinds = __ldg(nd + 6), addrs = __ldg(nd + 7);
+        if (tag != cur_tag) {
+          ro = object_ray(inv_mats + 3 * tag, wox, woy, woz, wdx, wdy, wdz);
+          cur_tag = tag;
+        }
+        const int kind[4] = {(int)kinds.x, (int)kinds.y, (int)kinds.z,
+                             (int)kinds.w};
+        float4 tn = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // entry distances
+        bool hit[4];
+        hit[0] = kind[0] != 0 && rtggx::box_hit(b0.x, b0.y, b0.z, b0.w, b1.x, b1.y,
+                                                ro, t_min, best_t, tn.x);
+        hit[1] = kind[1] != 0 && rtggx::box_hit(b1.z, b1.w, b2.x, b2.y, b2.z, b2.w,
+                                                ro, t_min, best_t, tn.y);
+        hit[2] = kind[2] != 0 && rtggx::box_hit(b3.x, b3.y, b3.z, b3.w, b4.x, b4.y,
+                                                ro, t_min, best_t, tn.z);
+        hit[3] = kind[3] != 0 && rtggx::box_hit(b4.z, b4.w, b5.x, b5.y, b5.z, b5.w,
+                                                ro, t_min, best_t, tn.w);
+        unsigned leaves = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          n_box += kind[k] != 0;
+          if (hit[k] && kind[k] == 1) leaves |= 1u << k;
+        }
+        while (leaves) {  // leaves in child order
+          const int k = __ffs(leaves) - 1;
+          leaves &= leaves - 1;
+          if (!(lane(tn, k) <= best_t)) continue;  // an earlier leaf was nearer
+          const int a = (int)lane(addrs, k);
+          const float4* __restrict__ tr = tris + (size_t)a * L * 3;
+          float4 v0 = __ldg(tr), e1 = __ldg(tr + 1), e2 = __ldg(tr + 2);
           for (int j = 0; j < L; ++j) {
-            const float* tr = leaf + 9 * j;
             // build_records4_padded fills a leaf's real triangles first,
             // then its NaN padding: the first pad ends the leaf
-            if (isnan(__ldg(tr))) break;
+            if (isnan(v0.x)) break;
             ++n_tri;
-            if (rtggx::tri_hit(tr, ro, t_min, best_t, best_u, best_v)) {
+            // the next slot's loads go out before this slot's test
+            float4 nv0 = v0, ne1 = e1, ne2 = e2;
+            if (j + 1 < L) {
+              tr += 3;
+              nv0 = __ldg(tr);
+              ne1 = __ldg(tr + 1);
+              ne2 = __ldg(tr + 2);
+            }
+            if (rtggx::tri_hit(v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x, e2.y,
+                               e2.z, ro, t_min, best_t, best_u, best_v)) {
               best_slot = a * L + j;
               best_inst = tag - 1;
             }
+            v0 = nv0;
+            e1 = ne1;
+            e2 = ne2;
           }
-        } else {
-          const int child_tag = kind == 3 ? (int)__ldg(nd + 32 + k) : tag;
-          // insertion sort, descending entry distance
-          int p = n_push++;
-          while (p > 0 && keys[p - 1] < tn) {
-            keys[p] = keys[p - 1];
-            vals[p] = vals[p - 1];
-            --p;
-          }
-          keys[p] = tn;
-          vals[p] = a | (child_tag << K1_TAG_SHIFT);
         }
+        const bool any_inst = kind[0] == 3 || kind[1] == 3 || kind[2] == 3 ||
+                              kind[3] == 3;
+        const float4 tags = any_inst ? __ldg(nd + 8) : make_float4(0, 0, 0, 0);
+        float key[4];
+        int val[4];  // -1: not pushed
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float t_in = lane(tn, k);
+          const bool push = hit[k] && kind[k] >= 2 && t_in <= best_t;
+          const int child_tag = kind[k] == 3 ? (int)lane(tags, k) : tag;
+          key[k] = push ? t_in : -CUDART_INF_F;
+          val[k] = push ? (int)lane(addrs, k) | (child_tag << K1_TAG_SHIFT) : -1;
+        }
+        exchange(key[0], val[0], key[1], val[1]);
+        exchange(key[2], val[2], key[3], val[3]);
+        exchange(key[0], val[0], key[2], val[2]);
+        exchange(key[1], val[1], key[3], val[3]);
+        exchange(key[1], val[1], key[2], val[2]);
+        // far first, so the nearest child is popped next.  The wrapper
+        // sizes the stack from the tree's bound, which no walk exceeds;
+        // the test only keeps a malformed tree inside the allocation
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          if (val[p] >= 0 && sp < stack_size) stack[K1_THREADS * sp++] = val[p];
       }
-      // far first, so the nearest child is popped next; a full stack drops
-      // the subtree (the bound from build_scene_wide makes that unreachable)
-      for (int p = 0; p < n_push; ++p)
-        if (sp < stack_size) stack[sp++] = vals[p];
     }
+    out_t[r] = best_t;
+    out_u[r] = best_u;
+    out_v[r] = best_v;
+    out_slot[r] = best_slot;
+    out_inst[r] = best_inst;
   }
-  out_t[r] = best_t;
-  out_u[r] = best_u;
-  out_v[r] = best_v;
-  out_slot[r] = best_slot;
-  out_inst[r] = best_inst;
-  if (stats != nullptr) {
-    atomicAdd(stats, n_box);
-    atomicAdd(stats + 1, n_tri);
+  if (stats != nullptr) {  // uniform: every thread of the warp is here
+    n_box = warp_sum(n_box);
+    n_tri = warp_sum(n_tri);
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(stats, (unsigned long long)n_box);
+      atomicAdd(stats + 1, (unsigned long long)n_tri);
+    }
   }
 }
 
 }  // namespace
 
-extern "C" int rtggx_trace_instanced(const void* nodes, const void* tris,
+// stack_size: entries per thread, the tree's bound (1..K1_MAX_STACK); the
+// launch takes stack_size * 128 * 4 bytes of shared memory per block.
+extern "C" int rtggx_trace_instanced(const void* nodes, const void* tris4,
                                      const void* inv_mats, const void* ray_o,
                                      const void* ray_d, const void* t_max,
                                      float t_min, int n_rays, int leaf_size,
@@ -147,11 +255,12 @@ extern "C" int rtggx_trace_instanced(const void* nodes, const void* tris,
                                      void* out_inst, void* stats,
                                      void* stream) {
   if (n_rays <= 0) return 0;
-  if (stack_size > K1_MAX_STACK) stack_size = K1_MAX_STACK;
-  const int threads = 128;
-  const int blocks = (n_rays + threads - 1) / threads;
-  trace_instanced_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)nodes, (const float*)tris, (const float*)inv_mats,
+  if (stack_size < 1 || stack_size > K1_MAX_STACK)
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (n_rays + K1_THREADS - 1) / K1_THREADS;
+  const size_t smem = sizeof(int) * K1_THREADS * stack_size;
+  trace_instanced_kernel<<<blocks, K1_THREADS, smem, (cudaStream_t)stream>>>(
+      (const float4*)nodes, (const float4*)tris4, (const float4*)inv_mats,
       (const float*)ray_o, (const float*)ray_d, (const float*)t_max, t_min,
       n_rays, leaf_size, stack_size, (float*)out_t, (float*)out_u,
       (float*)out_v, (int*)out_slot, (int*)out_inst,

@@ -77,7 +77,11 @@ class RenderConfig:
     traversal: str = "auto"         # "auto" (= "wide", K1) | "wide" |
                                     # "pallas4" (K5) | "pallas" (K4) | "jax"
     leaf_size: int = 8              # per-mesh tree leaf size (K4, K5)
-    wide_leaf_size: int = 64        # scene BVH leaf size (stream slots)
+    # scene BVH leaf size (stream slots).  The reference's L64 was its TPU
+    # kbench's best; on an H100 (700 W) kbench's K1 traversal costs, in ms
+    # on the 1280x720 primary / reflection sets: lean L8 0.3927 / 0.2765,
+    # L16 0.5121 / 0.3480, L64 0.8753 / 0.5842
+    wide_leaf_size: int = 8
     sort_secondary: bool = True     # dead|octant|Morton order for bounce
                                     # waves (kernel traversals only)
 

@@ -39,8 +39,10 @@ SIGNATURES = {
     # out_t out_u out_v out_slot out_inst stats stream
     "rtggx_trace_instanced": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P, _P),
-    # K2/K3: refl axis src normal aux depth out H W width br_max stream
-    "rtggx_spatial_pass": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _F, _F, _P),
+    # K2/K3: refl axis src normal aux depth gauss_table n_br out H W width
+    # br_max stream
+    "rtggx_spatial_pass": (_I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F,
+                           _F, _P),
     # K4: nodes num_nodes tris inv ray_o ray_d t_max t_min n_rays
     # out_t out_u out_v out_pos stats stream
     "rtggx_trace_flat": (_P, _I, _P, _P, _P, _P, _P, _F, _I,

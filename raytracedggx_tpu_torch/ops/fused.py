@@ -11,7 +11,9 @@ pair — used for tensors on the CPU and as the kernel's oracle.
 
 Layout (see ops/scene_wide.py): nodes (N, 36) f32 rows, tris (S, 9) f32
 stream slots (leaf j = slots [j*L, (j+1)*L), padding v0 = NaN),
-inv_mats (1 + I, 12) inverse worlds with row 0 the identity.
+inv_mats (1 + I, 12) inverse worlds with row 0 the identity.  The kernel
+reads node rows as nine float4 and the slots from their (S, 12) copy
+``SceneWideBVH.tris4`` (v0, e1, e2 each padded to a float4).
 Outputs (t, u, v, slot, inst): t is t_max and u, v are 0 on a miss;
 slot = leaf*L + k and inst are int32, -1 on a miss.
 """
@@ -212,27 +214,36 @@ def trace_instanced_plain(tris, inv_mats, inst_slots, ray_o, ray_d, t_min,
     return best_t, best_u, best_v, best_slot, best_inst
 
 
-def trace_tiles_instanced(nodes, tris, inv_mats, inst_slots, ray_o, ray_d,
+def trace_tiles_instanced(nodes, tris4, inv_mats, inst_slots, ray_o, ray_d,
                           t_min, t_max, leaf_size: int, stack: int,
                           stats=None):
     """K1 wrapper: closest hit of (R, 3) WORLD-space rays over the
-    instanced scene BVH.  CUDA tensors launch the kernel (or raise);
-    CPU tensors take ``trace_instanced_plain``.  stats: optional (2,)
+    instanced scene BVH.  tris4: the (S, 12) slot rows; stack: the tree's
+    K1 bound (``SceneWideBVH.k1_stack``), at most the kernel's compiled
+    shared-memory stack (``rtggx_k1_max_stack``, 64), else this raises.
+    CUDA tensors launch the kernel (or raise); CPU tensors take
+    ``trace_instanced_plain`` on the (S, 9) slots.  stats: optional (2,)
     int64 tensor the kernel adds its box and triangle tests to."""
     t_max = _per_ray(t_max, ray_o)
     if ray_o.device.type == "cpu":
+        tris = tris4.reshape(-1, 3, 4)[..., :3].reshape(-1, 9)
         return trace_instanced_plain(tris, inv_mats, inst_slots, ray_o,
                                      ray_d, t_min, t_max)
     dev, f32 = ray_o.device, torch.float32
     R = ray_o.shape[0]
     require("nodes", nodes, (None, 36), f32, dev)
-    require("tris", tris, (None, 9), f32, dev)
+    require("tris4", tris4, (None, 12), f32, dev)
     require("inv_mats", inv_mats, (None, 12), f32, dev)
     require("ray_o", ray_o, (R, 3), f32, dev)
     require("ray_d", ray_d, (R, 3), f32, dev)
+    for name, t in (("nodes", nodes), ("tris4", tris4),
+                    ("inv_mats", inv_mats)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: K1 reads float4 rows, need a "
+                             f"16-byte aligned tensor")
     lib = load_library()
-    if stack > lib.rtggx_k1_max_stack():
-        raise ValueError(f"stack {stack} exceeds the kernel's "
+    if not 1 <= stack <= lib.rtggx_k1_max_stack():
+        raise ValueError(f"the tree needs a stack of {stack}; K1 compiles "
                          f"{lib.rtggx_k1_max_stack()}")
     out_t = torch.empty(R, dtype=f32, device=dev)
     out_u = torch.empty(R, dtype=f32, device=dev)
@@ -240,7 +251,7 @@ def trace_tiles_instanced(nodes, tris, inv_mats, inst_slots, ray_o, ray_d,
     out_slot = torch.empty(R, dtype=torch.int32, device=dev)
     out_inst = torch.empty(R, dtype=torch.int32, device=dev)
     err = lib.rtggx_trace_instanced(
-        nodes.data_ptr(), tris.data_ptr(), inv_mats.data_ptr(),
+        nodes.data_ptr(), tris4.data_ptr(), inv_mats.data_ptr(),
         ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(), float(t_min),
         R, int(leaf_size), int(stack), out_t.data_ptr(), out_u.data_ptr(),
         out_v.data_ptr(), out_slot.data_ptr(), out_inst.data_ptr(),

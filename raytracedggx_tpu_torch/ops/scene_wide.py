@@ -9,8 +9,10 @@ transforms each ray by the tag's inverse world on a tag change.
 
 Re-laid out for the GPU: the reference's lane-tiled (Nt, 36, 128) node
 columns become (N, 36) rows, and its (Lt, 9L, 128) leaf columns become
-(S, 9) stream-slot rows (slot = leaf * L + k).  ``from_reference_arrays``
-converts the reference's arrays, so both sides can trace one BVH.
+(S, 9) stream-slot rows (slot = leaf * L + k).  K1 reads a copy of the
+slots with 48-byte rows, (S, 12): v0, e1, e2 each padded to a float4, so
+a triangle is three 16-byte loads.  ``from_reference_arrays`` converts the
+reference's arrays, so both sides can trace one BVH.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ BIG = 3e38
 class SceneWideBVH(NamedTuple):
     nodes: torch.Tensor         # (N, 36) f32: boxes 24 | kind 4 | a 4 | b 4
     tris: torch.Tensor          # (S, 9) f32 static object-space slots
+    tris4: torch.Tensor         # (S, 12) f32 K1's copy: v0 _ e1 _ e2 _
     inv_mats: torch.Tensor      # (1 + I, 12) f32 inverse worlds (refit)
     attrs: torch.Tensor         # (S, 10) f32: n0 n1 n2 | prim per slot
     static_cols: torch.Tensor   # (N, 12) f32 kind | a | b
@@ -44,7 +47,8 @@ class SceneWideBVH(NamedTuple):
     n_top: int
     num_nodes: int
     leaf_size: int
-    stack: int
+    stack: int                  # the reference's bound (two-pop DFS)
+    k1_stack: int               # K1's bound: near-first DFS, 3 * depth + 1
 
 
 def _instance_tree(num_inst: int):
@@ -102,6 +106,28 @@ def _derived(kind, a_col, b_col, boxes, n_top, num_inst, L):
     return corners, slots
 
 
+def tree_depth(kind, a_col) -> int:
+    """Nodes on the longest root-to-leaf path of the merged graph (kind-2
+    and kind-3 edges; children have larger indices than their parents)."""
+    depth = np.ones(kind.shape[0], np.int32)
+    for r in range(kind.shape[0] - 1, -1, -1):
+        d = 1
+        for k in range(4):
+            if kind[r, k] >= 2:
+                d = max(d, 1 + depth[a_col[r, k]])
+        depth[r] = d
+    return int(depth[0])
+
+
+def float4_rows(tris):
+    """(S, 9) slots v0 e1 e2 -> (S, 12): each vector padded to a float4
+    with a 0, so K1 reads a slot as three 16-byte loads.  Pad slots keep
+    v0 = NaN."""
+    t = np.asarray(tris, np.float32).reshape(-1, 3, 3)
+    return np.concatenate([t, np.zeros_like(t[..., :1])], axis=2
+                          ).reshape(-1, 12)
+
+
 def _assemble(tris, attrs, kind, a_col, b_col, boxes, n_top, top_children,
               num_inst, L, stack, worlds, device) -> SceneWideBVH:
     corners, slots = _derived(kind, a_col, b_col, boxes, n_top, num_inst, L)
@@ -112,12 +138,14 @@ def _assemble(tris, attrs, kind, a_col, b_col, boxes, n_top, top_children,
                                device=device)
 
     sw = SceneWideBVH(
-        nodes=None, tris=dev(tris), inv_mats=None, attrs=dev(attrs),
+        nodes=None, tris=dev(tris), tris4=dev(float4_rows(tris)),
+        inv_mats=None, attrs=dev(attrs),
         static_cols=dev(static_cols), mesh_boxes=dev(boxes[n_top:]),
         root_corners=dev(corners),
         inst_slots=tuple(dev(s, torch.int64) for s in slots),
         top_children=tuple(top_children), n_top=int(n_top),
-        num_nodes=int(kind.shape[0]), leaf_size=int(L), stack=int(stack))
+        num_nodes=int(kind.shape[0]), leaf_size=int(L), stack=int(stack),
+        k1_stack=3 * tree_depth(kind, a_col) + 1)
     if worlds is None:
         worlds = torch.eye(4, device=device).expand(num_inst, 4, 4)
     return refit_scene_wide(sw, worlds)
@@ -215,14 +243,7 @@ def build_scene_wide(geom, mesh_ids, leaf_size: int = 16, worlds=None,
 
     # stack bound of the reference's two-pop DFS over the merged graph
     # (kind-3 edges jump from top nodes to mesh roots, larger indices)
-    depth = np.ones(N, np.int32)
-    for r in range(N - 1, -1, -1):
-        d = 1
-        for k in range(4):
-            if kind[r, k] >= 2:
-                d = max(d, 1 + depth[a_col[r, k]])
-        depth[r] = d
-    stack = max(128, int(6 * depth[0] + 16))
+    stack = max(128, 6 * tree_depth(kind, a_col) + 16)
 
     return _assemble(np.concatenate(tris), np.concatenate(attrs), kind,
                      a_col, b_col, boxes, n_top, top_children, num_inst, L,
@@ -299,9 +320,9 @@ def trace_scene_wide_fused(sw: SceneWideBVH, ray_o, ray_d, t_min, t_max,
             sw.tris, sw.inv_mats, sw.inst_slots, ray_o, ray_d, t_min, t_max)
     else:
         t, u, v, slot, inst = trace_tiles_instanced(
-            sw.nodes, sw.tris, sw.inv_mats, sw.inst_slots,
+            sw.nodes, sw.tris4, sw.inv_mats, sw.inst_slots,
             ray_o.contiguous(), ray_d.contiguous(), t_min, t_max,
-            sw.leaf_size, sw.stack)
+            sw.leaf_size, sw.k1_stack)
     hit = slot >= 0
     att = sw.attrs[torch.clamp(slot.to(torch.int64), 0,
                                sw.attrs.shape[0] - 1)]

@@ -4,20 +4,23 @@ their plain twins.
 Counterpart of raytracedggx_tpu/ops/spatial_pallas.py (the '[V]' toggle
 variant) and of the stencils ``_reflection_pass`` / ``_diffuse_pass`` in
 raytracedggx_tpu/denoise/spatial.py (the direct variant), which are the
-plain versions here.  The CUDA kernels (csrc/spatial.cu) compute one
-output pixel per thread straight from the channel-last (H, W, C) tensors,
-with a row kernel and a column kernel in place of the TPU's transposed
-planes; out-of-bounds taps are skipped, which equals the reference's zero
-padding (the hit gate is 0 there).
+plain versions here.  The CUDA kernels (csrc/spatial.cu) stage a tile of
+the channel-last (H, W, C) tensors with its 16-pixel halo in shared memory
+and run the 33 taps from there, with a row kernel and a column kernel in
+place of the TPU's transposed planes; out-of-bounds taps are zero-filled
+as the reference pads them (the hit gate is 0 there).  K2 reads its
+Gaussian weights from ``gaussian_table``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from ..utils.math3d import smoothstep
-from .cuda_lib import check_launch, load_library, stream_handle
+from .cuda_lib import check_launch, load_library, pointer, stream_handle
 
 RADIUS = 16
 SIGMA_Z = 4.0
@@ -28,6 +31,26 @@ def gaussian_radius(rough, width, height):
     from the full image's width and height for both axes."""
     return torch.clamp(0.1 * rough * width, 0.0, height * 0.05
                        ).to(torch.int32).to(torch.float32)
+
+
+def gaussian_table(br_max, device):
+    """(floor(br_max) + 1, 17) f32: row br, column |i| holds the plain
+    pass's Gaussian weight exp(-0.5 * (|i| / sigma)^2), sigma = (br + 1) / 3,
+    with its arithmetic (float32 reciprocal and multiplies, torch.exp), so
+    K2's weights equal the plain version's bit for bit on the same device.
+    Built once per (floor(br_max), device)."""
+    return _gaussian_table(int(br_max) + 1, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _gaussian_table(n_br, device):
+    # the plain pass's |i| / sigma is torch's scalar / tensor, which is
+    # reciprocal(sigma) * |i|
+    sigma = (torch.arange(n_br, dtype=torch.float32, device=device)
+             + 1.0) / 3.0
+    i = torch.arange(RADIUS + 1, dtype=torch.float32, device=device)
+    a = sigma.reciprocal()[:, None] * i
+    return torch.exp(-0.5 * a * a)
 
 
 def _taps(x, axis):
@@ -95,11 +118,14 @@ def _launch(refl, src_tm, normal, aux, depth, width, height, axis):
                              f"{tuple(t.shape)} on {t.device}")
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
+    br_max = float(height * 0.05)
+    table = gaussian_table(br_max, dev) if refl else None
     out = torch.empty((H, W, 3), dtype=torch.float32, device=dev)
     err = load_library().rtggx_spatial_pass(
         int(refl), int(axis), src_tm.data_ptr(), normal.data_ptr(),
-        aux.data_ptr(), depth.data_ptr(), out.data_ptr(), H, W,
-        float(width), float(height * 0.05), stream_handle(dev))
+        aux.data_ptr(), depth.data_ptr(), pointer(table),
+        0 if table is None else table.shape[0], out.data_ptr(), H, W,
+        float(width), br_max, stream_handle(dev))
     check_launch(err, "K2 reflection_pass" if refl else "K3 diffuse_pass")
     return out
 

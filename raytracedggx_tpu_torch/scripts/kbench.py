@@ -1,5 +1,6 @@
 """Traversal-kernel micro-bench: price each kernel-lab variant (K6a, K6b,
-K7) on the card, with a parity gate against K1.
+K7) on the card, with a parity gate against K1, and K1 itself (the rows
+``k1``, at the renderer's leaf size, ``k1_l16`` and ``k1_l64``).
 
 Port of scripts/kbench.py.  Workload: the stand-in model scene
 (``scripts/standin.py``, 81,920 triangles, since ``bunny.obj`` is absent)
@@ -133,12 +134,17 @@ VARIANTS = [
     ("lean_l16_t16", dict(lean=True, l16=True, tile_s=16)),
     ("lean_l16_t32", dict(lean=True, l16=True, tile_s=32)),
     ("alldead", dict(alldead=True)),
+    ("k1", dict(k1=True)),
+    ("k1_l16", dict(k1=True, l16=True)),
+    ("k1_l64", dict(k1=True, l64=True)),
 ]
 VARIANT_KW = dict(VARIANTS)
 
 
 def kernel_of(kw) -> str:
-    """Which kernel a variant launches: "K6a", "K6b" or "K7"."""
+    """Which kernel a variant launches: "K1", "K6a", "K6b" or "K7"."""
+    if kw.get("k1"):
+        return "K1"
     if "mxu" in kw:
         return "K7"
     return "K6b" if kw.get("leaf_stack") else "K6a"
@@ -270,12 +276,16 @@ class Bench:
                 tmax[order].contiguous())
 
     def variant_tree(self, kw):
-        """(tree, leaf size) of a variant's keywords."""
+        """(tree, leaf size) of a variant's keywords: leaf 8 by default,
+        K1's by default the renderer's."""
+        from ..engine.renderer import RenderConfig
+
         if kw.get("lbvh16"):
             return self.tree(16, "lbvh"), 16
         if "mxu" in kw:
             return self.tree(kw["mxu"]), kw["mxu"]
-        leaf = next((v for k, v in TREE_KEYS.items() if kw.get(k)), 8)
+        default = RenderConfig.wide_leaf_size if kw.get("k1") else 8
+        leaf = next((v for k, v in TREE_KEYS.items() if kw.get(k)), default)
         return self.tree(leaf), leaf
 
     def coef(self, s, L):
@@ -305,12 +315,18 @@ class Bench:
         return s.stack * (3 if kw.get("leaf_stack") else 1)
 
     def launch(self, kw, o, d, t_max, stats=None, totals=None, t_min=0.0):
-        """One launch of a variant on rays (o, d, t_max): K6a/K6b through
-        trace_tiles_lab, K7 through trace_tiles_mxu."""
+        """One launch of a variant on rays (o, d, t_max): K1 through
+        trace_tiles_instanced, K6a/K6b through trace_tiles_lab, K7 through
+        trace_tiles_mxu."""
+        from ..ops.fused import trace_tiles_instanced
         from ..ops.lab.fused_lab import trace_tiles_lab
         from ..ops.lab.fused_mxu import trace_tiles_mxu
 
         s, L = self.variant_tree(kw)
+        if kw.get("k1"):
+            return trace_tiles_instanced(s.nodes, s.tris4, s.inv_mats,
+                                         s.inst_slots, o, d, t_min, t_max, L,
+                                         s.k1_stack, totals)
         if "mxu" in kw:
             return trace_tiles_mxu(s.nodes, self.coef(s, L), s.inv_mats,
                                    s.inst_slots, o, d, t_min, t_max, L,
@@ -326,12 +342,16 @@ class Bench:
 
     def plain(self, kw, o, d, t_max, t_min=0.0):
         """The variant's plain version on rays (o, d, t_max):
-        trace_lab_plain (its counts add each ray's deepest stack) or
-        trace_mxu_plain."""
+        trace_instanced_plain, trace_lab_plain (its counts add each ray's
+        deepest stack) or trace_mxu_plain."""
+        from ..ops.fused import trace_instanced_plain
         from ..ops.lab.fused_lab import trace_lab_plain
         from ..ops.lab.fused_mxu import trace_mxu_plain
 
         s, L = self.variant_tree(kw)
+        if kw.get("k1"):
+            return trace_instanced_plain(s.tris, s.inv_mats, s.inst_slots, o,
+                                         d, t_min, t_max)
         if "mxu" in kw:
             return trace_mxu_plain(self.coef(s, L), s.inv_mats,
                                    s.inst_slots, o, d, t_min, t_max, L)
@@ -350,8 +370,8 @@ class Bench:
         s, L = self.variant_tree(kw)
         if id(s) not in self._k1_t:
             self._k1_t[id(s)] = trace_tiles_instanced(
-                s.nodes, s.tris, s.inv_mats, s.inst_slots, self.o_r,
-                self.d_r, T_MIN_REFL, self.t_r, L, s.stack)[0]
+                s.nodes, s.tris4, s.inv_mats, s.inst_slots, self.o_r,
+                self.d_r, T_MIN_REFL, self.t_r, L, s.k1_stack)[0]
         return self._k1_t[id(s)]
 
     def run(self, name, kw, frames, parity=True):

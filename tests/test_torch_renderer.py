@@ -72,6 +72,56 @@ def test_frames_match_reference_renderer(monkeypatch):
     assert np.asarray(js.history).dtype == np.float16
 
 
+def _k1_walk(nodes, tris4, inv_mats, inst_slots, ray_o, ray_d, t_min,
+             t_max, leaf_size, stack, stats=None):
+    """K1's contract through a walk of the tree itself, in the kernel's
+    near-first order (trace_lab_plain, one pop per step), with the stack
+    capped at the tree's K1 bound; a push onto a full stack fails."""
+    from raytracedggx_tpu_torch.ops.lab.fused_lab import trace_lab_plain
+
+    tris = tris4.reshape(-1, 3, 4)[..., :3].reshape(-1, 9)
+    slot_ids = torch.zeros((tris.shape[0], 10))
+    slot_ids[:, 9] = torch.arange(tris.shape[0])
+    t, u, v, _, slot, inst, counts = trace_lab_plain(
+        nodes, tris, slot_ids, inv_mats, ray_o, ray_d, t_min, t_max,
+        leaf_size, stack=stack, npop=1, ordered=True, lean=True)
+    assert int(counts[:, 2].max()) < stack
+    return t, u, v, slot, inst
+
+
+def test_default_leaf_frames_match_reference_l64(monkeypatch):
+    """The port's default config (the card's leaf size, 8), walking its
+    own tree, against the same frames at the reference's L64 at the golden
+    bar of tests/test_golden.py:46-48 (max 0.02, mean 0.002), and against
+    the reference renderer at its L64 at the frame bar above.  (Port and
+    reference differ by up to 0.054 on 7 pixels at either leaf size, so
+    the golden bar's max is held between the port's two trees.)"""
+    import raytracedggx_tpu_torch.ops.scene_wide as t_scene_wide
+
+    monkeypatch.setattr(j_scene_wide, "trace_scene_wide_fused",
+                        jax_bruteforce_fused)
+    monkeypatch.setattr(t_scene_wide, "trace_tiles_instanced", _k1_walk)
+    jr = JRenderer(JScene(meshes=[j_ground_cube(), j_ground_cube()],
+                          materials=j_materials(), pos_scale=POS),
+                   config=JRenderConfig(width=W, height=H, traversal="wide"))
+    js = jr.init_state()
+    for _ in range(FRAMES):
+        js, jf, _ = jr.step(js, 1 / 60)
+    frames = {}
+    for cfg in (RenderConfig(width=W, height=H),
+                RenderConfig(width=W, height=H, wide_leaf_size=64)):
+        tr = Renderer(Scene(meshes=[ground_cube(), ground_cube()],
+                            materials=default_materials(), pos_scale=POS),
+                      config=cfg, device="cpu")
+        state, frames[tr.swide.leaf_size] = tr.run_frames(FRAMES)
+    assert sorted(frames) == [8, 64] and jr.config.wide_leaf_size == 64
+    diff = np.abs(np.clip(frames[8].numpy(), 0, 1)
+                  - np.clip(frames[64].numpy(), 0, 1))
+    assert float(diff.max()) < 0.02, f"max pixel diff {diff.max():.4f}"
+    assert float(diff.mean()) < 0.002
+    _frame_bar(frames[8].numpy(), np.asarray(jf))
+
+
 def test_frames_match_golden_image():
     """The JAX package's frozen output (traversal="jax"), widened by the
     PNG's 8-bit quantisation."""

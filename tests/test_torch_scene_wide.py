@@ -130,3 +130,65 @@ def test_k1_plain_matches_reference_kernel(rng, extra, angle):
     k = h & (got.prim.numpy() == np.asarray(ref.prim))
     for a, b in ((got.u, ref.u), (got.v, ref.v), (got_n, ref_n)):
         np.testing.assert_allclose(a.numpy()[k], np.asarray(b)[k], atol=1e-4)
+
+
+def _standin(subdiv):
+    from raytracedggx_tpu_torch.scripts.standin import model_scene
+
+    return model_scene(subdiv)
+
+
+def _nested():
+    return _scenes(CASES[2][0])[1]
+
+
+@pytest.mark.parametrize("leaf_size", [8, 64])
+def test_float4_rows_equal_slot_stream(leaf_size):
+    """K1's (S, 12) rows are the (S, 9) stream with each vector padded by
+    a 0: the same slots, NaN pads kept."""
+    for scene in (_nested(), _standin(3)):
+        sw = build_scene_wide(upload_scene(scene), scene.mesh_ids,
+                              leaf_size=leaf_size)
+        rows = sw.tris4.numpy().reshape(-1, 3, 4)
+        assert sw.tris4.shape == (sw.tris.shape[0], 12)
+        np.testing.assert_array_equal(rows[..., :3].reshape(-1, 9),
+                                      sw.tris.numpy())
+        assert not rows[..., 3].any()
+        pad = np.isnan(sw.tris.numpy()[:, 0])
+        assert pad.any() and np.isnan(rows[pad, 0, 0]).all()
+
+
+def _aimed_rays(rng, n, center, spread):
+    """Rays from around a scene toward random points near ``center``."""
+    o = rng.uniform(-6.0, 6.0, size=(n, 3)).astype(np.float32)
+    o[:, 1] = rng.uniform(1.0, 8.0, size=n)
+    tgt = center + rng.uniform(-spread, spread, size=(n, 3))
+    d = (tgt - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.as_tensor(o), torch.as_tensor(d)
+
+
+@pytest.mark.parametrize("leaf_size", [8, 64])
+@pytest.mark.parametrize("scene", ["standin", "nested"])
+def test_k1_stack_bounds_the_walk(rng, scene, leaf_size):
+    """k1_stack = 3 * depth + 1 is at least the deepest stack of a walk in
+    the kernels' near-first order (trace_lab_plain, one pop per step) over
+    rays aimed at the scene, and fits the kernel's 64 for the stand-in."""
+    from raytracedggx_tpu_torch.ops.lab.fused_lab import trace_lab_plain
+
+    if scene == "standin":
+        sc, center, spread = _standin(6), np.array([0.0, 1.0, 0.0]), 1.3
+    else:
+        sc, center, spread = _nested(), np.array([0.0, 1.0, 1.0]), 6.0
+    sw = build_scene_wide(upload_scene(sc), sc.mesh_ids, leaf_size=leaf_size)
+    sw = refit_scene_wide(sw, sc.worlds(0.7))
+    o, d = _aimed_rays(rng, 384, center, spread)
+    t_max = torch.full((384,), 1e4)
+    out = trace_lab_plain(sw.nodes, sw.tris, sw.attrs, sw.inv_mats, o, d,
+                          0.0, t_max, leaf_size, stack=128, npop=1,
+                          ordered=True, lean=True)
+    deepest = int(out[6][:, 2].max())
+    assert int((out[4] >= 0).sum()) > 100           # the walks reach leaves
+    assert 2 <= deepest <= sw.k1_stack
+    if scene == "standin":
+        assert sw.k1_stack <= 64

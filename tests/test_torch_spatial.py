@@ -98,3 +98,21 @@ def test_wrappers_take_plain_versions_for_cpu_tensors(rng):
             ks.diffuse_pass_plain(src, t["normal"], t["metal"], t["depth"],
                                   axis), rtol=0, atol=0)
     assert (ks.reflection_pass.launches, ks.diffuse_pass.launches) == before
+
+
+@pytest.mark.parametrize("hw", [(720, 1280), (54, 96)])
+def test_gaussian_table_equals_plain_weights(hw):
+    """K2's table holds the plain pass's Gaussian weight bit for bit for
+    every radius br up to br_max = 0.05 * height, read at (br, |i|)."""
+    h, w = hw
+    rough = torch.linspace(0.0, 1.0, h * w).reshape(h, w)
+    br = ks.gaussian_radius(rough, w, h)
+    assert int(br.max()) == int(h * 0.05)
+    assert torch.equal(torch.unique(br), torch.arange(int(h * 0.05) + 1.0))
+    table = ks.gaussian_table(h * 0.05, "cpu")
+    assert table.shape == (int(h * 0.05) + 1, ks.RADIUS + 1)
+    sigma = (br + 1.0) / 3.0
+    for i in range(-ks.RADIUS, ks.RADIUS + 1):
+        a = float(abs(i)) / sigma                  # reflection_pass_plain
+        want = torch.exp(-0.5 * a * a)
+        assert torch.equal(table[br.long(), abs(i)], want), i
