@@ -86,18 +86,18 @@ def check(ok, msg):
 
 
 def cuda_ms(fn, reps):
-    """Milliseconds per call of ``reps`` calls of fn() run back to back
-    between one pair of CUDA events (after a warm-up), so the wrappers'
-    host time overlaps the kernels' as in a frame."""
+    """Median milliseconds of fn() between CUDA events (after a warm-up)."""
     fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    times = []
     for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
 
 
 # ---------------------------------------------------------------- phase 0
@@ -227,8 +227,9 @@ def k1_check(name, sw, o, d, t_max, t_min=0.0, reps=20):
     del ref
     stats = torch.zeros(2, dtype=torch.int64, device=o.device)
     kern(stats)
+    # the bytes the function needs: the (S, 9) slots (tris4 only pads them)
     bound_ms, bound_by = trace_bound(
-        (sw.nodes, sw.tris4, sw.inv_mats, o, d, t_max), o.shape[0], 20, stats)
+        (sw.nodes, sw.tris, sw.inv_mats, o, d, t_max), o.shape[0], 20, stats)
     ms = cuda_ms(kern, reps)
     print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
           f"{bound_ms:.6f} ms ({bound_by})")

@@ -1,7 +1,8 @@
 // Ray set-up, slab test and Moller-Trumbore test shared by the traversal
 // kernels K1 (traverse.cu), K4 (traverse_flat.cu) and K5
-// (traverse_wide4.cu).  Each test takes its operands as values (K1 reads
-// them as float4) or from a row in memory.  The comparisons are those of the TPU kernels, so
+// (traverse_wide4.cu).  Each function takes its operands as values (K1
+// reads them as float4) or from a row in memory.  The comparisons are
+// those of the TPU kernels, so
 // hits and exact-t ties resolve as there; no fast math, because empty
 // boxes (lo = +inf, hi = -inf), NaN padding and degenerate triangles
 // (det = 0 -> NaN) must fail every comparison.
@@ -22,27 +23,43 @@ __device__ __forceinline__ float safe_inv(float d) {
   return 1.0f / d;
 }
 
-// The ray (o, d) moved by an inverse world m (3x3 row-major, then the
-// translation) as o*M + t and d*M, the direction left unnormalised so t
-// stays in world units; m == nullptr keeps the ray as given.
-__device__ __forceinline__ Ray make_ray(const float* __restrict__ m,
-                                        float ox, float oy, float oz,
-                                        float dx, float dy, float dz) {
+// The ray (o, d) moved by an inverse world m = (a, b, c), its 12 floats
+// packed three to a float4 (3x3 row-major, then the translation), as
+// o*M + t and d*M, the direction left unnormalised so t stays in world
+// units.
+__device__ __forceinline__ Ray make_ray(const float4& a, const float4& b,
+                                        const float4& c, float ox, float oy,
+                                        float oz, float dx, float dy,
+                                        float dz) {
   Ray r;
-  if (m == nullptr) {
-    r.ox = ox; r.oy = oy; r.oz = oz;
-    r.dx = dx; r.dy = dy; r.dz = dz;
-  } else {
-    r.ox = ox * __ldg(m + 0) + oy * __ldg(m + 3) + oz * __ldg(m + 6) + __ldg(m + 9);
-    r.oy = ox * __ldg(m + 1) + oy * __ldg(m + 4) + oz * __ldg(m + 7) + __ldg(m + 10);
-    r.oz = ox * __ldg(m + 2) + oy * __ldg(m + 5) + oz * __ldg(m + 8) + __ldg(m + 11);
-    r.dx = dx * __ldg(m + 0) + dy * __ldg(m + 3) + dz * __ldg(m + 6);
-    r.dy = dx * __ldg(m + 1) + dy * __ldg(m + 4) + dz * __ldg(m + 7);
-    r.dz = dx * __ldg(m + 2) + dy * __ldg(m + 5) + dz * __ldg(m + 8);
-  }
+  r.ox = ox * a.x + oy * a.w + oz * b.z + c.y;
+  r.oy = ox * a.y + oy * b.x + oz * b.w + c.z;
+  r.oz = ox * a.z + oy * b.y + oz * c.x + c.w;
+  r.dx = dx * a.x + dy * a.w + dz * b.z;
+  r.dy = dx * a.y + dy * b.x + dz * b.w;
+  r.dz = dx * a.z + dy * b.y + dz * c.x;
   r.ix = safe_inv(r.dx);
   r.iy = safe_inv(r.dy);
   r.iz = safe_inv(r.dz);
+  return r;
+}
+
+// The same with m read from memory; m == nullptr keeps the ray as given.
+__device__ __forceinline__ Ray make_ray(const float* __restrict__ m,
+                                        float ox, float oy, float oz,
+                                        float dx, float dy, float dz) {
+  if (m != nullptr)
+    return make_ray(
+        make_float4(__ldg(m + 0), __ldg(m + 1), __ldg(m + 2), __ldg(m + 3)),
+        make_float4(__ldg(m + 4), __ldg(m + 5), __ldg(m + 6), __ldg(m + 7)),
+        make_float4(__ldg(m + 8), __ldg(m + 9), __ldg(m + 10), __ldg(m + 11)),
+        ox, oy, oz, dx, dy, dz);
+  Ray r;
+  r.ox = ox; r.oy = oy; r.oz = oz;
+  r.dx = dx; r.dy = dy; r.dz = dz;
+  r.ix = safe_inv(dx);
+  r.iy = safe_inv(dy);
+  r.iz = safe_inv(dz);
   return r;
 }
 

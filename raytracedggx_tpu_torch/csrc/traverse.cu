@@ -75,25 +75,6 @@ __device__ __forceinline__ float lane(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-// rtggx::make_ray with the inverse world read as three float4.
-__device__ __forceinline__ rtggx::Ray object_ray(const float4* __restrict__ m,
-                                                 float ox, float oy, float oz,
-                                                 float dx, float dy,
-                                                 float dz) {
-  const float4 a = __ldg(m), b = __ldg(m + 1), c = __ldg(m + 2);
-  rtggx::Ray r;
-  r.ox = ox * a.x + oy * a.w + oz * b.z + c.y;
-  r.oy = ox * a.y + oy * b.x + oz * b.w + c.z;
-  r.oz = ox * a.z + oy * b.y + oz * c.x + c.w;
-  r.dx = dx * a.x + dy * a.w + dz * b.z;
-  r.dy = dx * a.y + dy * b.x + dz * b.w;
-  r.dz = dx * a.z + dy * b.y + dz * c.x;
-  r.ix = rtggx::safe_inv(r.dx);
-  r.iy = rtggx::safe_inv(r.dy);
-  r.iz = rtggx::safe_inv(r.dz);
-  return r;
-}
-
 // one exchange of the sorting network: descending keys
 __device__ __forceinline__ void exchange(float& ka, int& va, float& kb,
                                          int& vb) {
@@ -149,7 +130,9 @@ trace_instanced_kernel(const float4* __restrict__ nodes,
         const float4 b3 = __ldg(nd + 3), b4 = __ldg(nd + 4), b5 = __ldg(nd + 5);
         const float4 kinds = __ldg(nd + 6), addrs = __ldg(nd + 7);
         if (tag != cur_tag) {
-          ro = object_ray(inv_mats + 3 * tag, wox, woy, woz, wdx, wdy, wdz);
+          const float4* __restrict__ m = inv_mats + 3 * tag;
+          ro = rtggx::make_ray(__ldg(m), __ldg(m + 1), __ldg(m + 2), wox, woy,
+                               woz, wdx, wdy, wdz);
           cur_tag = tag;
         }
         const int kind[4] = {(int)kinds.x, (int)kinds.y, (int)kinds.z,

@@ -78,9 +78,10 @@ class RenderConfig:
                                     # "pallas4" (K5) | "pallas" (K4) | "jax"
     leaf_size: int = 8              # per-mesh tree leaf size (K4, K5)
     # scene BVH leaf size (stream slots).  The reference's L64 was its TPU
-    # kbench's best; on an H100 (700 W) kbench's K1 traversal costs, in ms
-    # on the 1280x720 primary / reflection sets: lean L8 0.3927 / 0.2765,
-    # L16 0.5121 / 0.3480, L64 0.8753 / 0.5842
+    # kbench's best; on an NVIDIA H100 80GB HBM3 (700 W) K1 itself costs,
+    # in ms on kbench's 1280x720 primary / reflection sets in one run
+    # (scripts/kbench.py rows k1, k1_l16, k1_l64): L8 0.3173 / 0.2335,
+    # L16 0.4084 / 0.2626, L64 0.7128 / 0.4448
     wide_leaf_size: int = 8
     sort_secondary: bool = True     # dead|octant|Morton order for bounce
                                     # waves (kernel traversals only)
@@ -142,6 +143,10 @@ class Renderer:
         self.proj_to_world = torch.linalg.inv(self.view_proj)
         self.eye = torch.as_tensor(self.camera.eye, dtype=torch.float32)
         self.jitter = halton_table(JITTER_TABLE)
+        # for measurement: on the "wide" path, called as hook(sw, o, d,
+        # t_min, t_max) with each wave's K1 inputs (sw the refitted scene
+        # BVH) just before the wave is traced
+        self.trace_hook = None
 
     def init_state(self) -> RenderState:
         cfg = self.config
@@ -242,9 +247,14 @@ class Renderer:
         BVH) or trace_fn (per-mesh, in each instance's object space)."""
         if self.traversal == "wide":
             sw = refit_scene_wide(self.swide, consts.worlds)
-            return dict(trace_fused=lambda o, d, t_min, t_max:
-                        trace_scene_wide_fused(sw, o, d, t_min, t_max,
-                                               impl=self.impl))
+            hook, impl = self.trace_hook, self.impl
+
+            def trace(o, d, t_min, t_max):
+                if hook is not None:
+                    hook(sw, o, d, t_min, t_max)
+                return trace_scene_wide_fused(sw, o, d, t_min, t_max,
+                                              impl=impl)
+            return dict(trace_fused=trace)
         if self.traversal == "jax":
             return dict(trace_fn=default_tracer(self.geom))
         geom, impl = self.geom, self.impl

@@ -24,10 +24,10 @@ activities), it prints:
   device time over ``frames`` launches;
 * a last line with all of it as JSON, with the card's name and power limit.
 
-It reads only the entry points a user calls (``Renderer``,
+It reads only public entry points (``Renderer`` and its ``trace_hook``,
 ``trace_scene_wide_fused``, ``reflection_pass``, ``diffuse_pass``) and the
-kernels' names, so one file measures the port at any commit.  Needs a CUDA
-device.
+kernels' names, so one file measures any tree of the port whose
+``Renderer`` has ``trace_hook``.  Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -156,33 +156,27 @@ def host_profile(renderer, state, n):
 
 
 def frame_waves(renderer):
-    """K1's inputs over the renderer's first frame, captured where its
-    waves hand them to the traversal: (sw, worlds, [(o, d, t_min, t_max),
-    ...]) with sw the BVH refit at the frame's instance worlds, one entry
-    per wave (primary in screen-block order, then the sorted reflection
-    wave; the diffuse wave when it is live) and t_max per ray."""
-    from ..ops.scene_wide import refit_scene_wide, trace_scene_wide_fused
-
+    """K1's inputs over the renderer's first frame, captured through its
+    ``trace_hook`` as the waves hand them to the traversal: (sw, worlds,
+    [(o, d, t_min, t_max), ...]) with sw the BVH refit at the frame's
+    instance worlds, one entry per wave (primary in screen-block order,
+    then the sorted reflection wave; the diffuse wave when it is live) and
+    t_max per ray."""
     waves, box = [], {}
 
-    def tracer(consts):
-        box["worlds"] = consts.worlds
-        sw = box["sw"] = refit_scene_wide(renderer.swide, consts.worlds)
+    def hook(sw, o, d, t_min, t_max):
+        box["sw"] = sw
+        t = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+        waves.append((o.contiguous(), d.contiguous(), float(t_min),
+                      t.expand(o.shape[0]).contiguous()))
 
-        def trace(o, d, t_min, t_max):
-            o, d = o.contiguous(), d.contiguous()
-            t = torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
-            waves.append((o, d, float(t_min),
-                          t.expand(o.shape[0]).contiguous()))
-            return trace_scene_wide_fused(sw, o, d, t_min, t_max)
-        return dict(trace_fused=trace)
-
-    renderer._tracer = tracer          # the instance's, for this one frame
+    renderer.trace_hook = hook
     try:
-        renderer.step(renderer.init_state())
+        state, _, _ = renderer.step(renderer.init_state())
     finally:
-        del renderer._tracer
-    return box["sw"], box["worlds"], waves
+        renderer.trace_hook = None
+    worlds = renderer.scene.worlds(state.angle).to(renderer.device)
+    return box["sw"], worlds, waves
 
 
 def main(argv=None) -> int:

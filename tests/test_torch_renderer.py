@@ -138,6 +138,28 @@ def test_frames_match_golden_image():
     assert state.history.dtype == torch.float16 and state.frame == FRAMES
 
 
+def test_trace_hook_sees_each_k1_wave():
+    """Renderer.trace_hook (read by scripts/kprofile.frame_waves, which
+    chip_smoke.py times K1 with) sees each wave's K1 inputs, and tracing
+    them again over the hook's tree gives the frame's own hits; the
+    returned worlds refit the tree the hook saw."""
+    from raytracedggx_tpu_torch.ops.scene_wide import (refit_scene_wide,
+                                                       trace_scene_wide_fused)
+    from raytracedggx_tpu_torch.scripts.kprofile import frame_waves
+
+    r = Renderer(Scene(meshes=[ground_cube(), ground_cube()],
+                       materials=default_materials(), pos_scale=POS),
+                 config=RenderConfig(width=W, height=H), device="cpu")
+    sw, worlds, waves = frame_waves(r)
+    assert r.trace_hook is None and len(waves) == 2
+    for o, d, t_min, t_max in waves:
+        assert o.shape == d.shape == (W * H, 3) and t_max.shape == (W * H,)
+    n_hit = int(trace_scene_wide_fused(sw, *waves[0])[0].hit.sum())
+    _, _, aux = r.step(r.init_state())
+    assert n_hit > 0 and n_hit == int((aux["normal"][..., 3] > 0.5).sum())
+    assert torch.equal(refit_scene_wide(r.swide, worlds).nodes, sw.nodes)
+
+
 @pytest.mark.parametrize("motion", [0.004, 0.2])   # tent / gather branch
 def test_temporal_and_tonemap_match_reference(rng, motion):
     cur = rng.random((H, W, 4)).astype(np.float32) * 2
