@@ -6,7 +6,8 @@
 Phases (each prints its own lines; any failure ends the run non-zero):
  0. the machine: nvidia-smi name and power limit, torch/CUDA/nvcc versions;
  1. build the CUDA kernels from csrc/ (one nvcc per source, sm_90a) and
-    load them;
+    load them; print ptxas's registers, stack frame and spills of every
+    kernel, and fail if K5 has a stack frame or spills;
  2. the scene: ground cube + a deterministic ~82k-triangle displaced
     icosphere standing in for the bunny; its instanced scene BVH (the
     renderer's leaf size, 8) for traversal="wide" and its per-mesh trees
@@ -16,9 +17,12 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     frame's two full waves (921,600 primary rays in screen-block order,
     921,600 sorted reflection rays, as the renderer hands them to K1), on
     16,384 rays drawn from them, and on the 9-instance nested scene; K4 and
-    K5 on 16,384 rays of the frame in the model instance's object space
-    and through their per-instance loop on the nested scene; K2/K3 on
-    1280x720 G-buffers, both axes;
+    K5 in the model instance's object space on 16,384 rays of the frame
+    and on the frame's two full waves (one plain run per wave, compared by
+    triangle id; K5 also in the TPU kernel's visit order), and through
+    their per-instance loop on the nested scene; K2/K3 on 1280x720
+    G-buffers, both axes (K3 also at its other compiled outputs per
+    thread);
  4. the paths at 1280x720, each with every launch count set to 0 just
     before it and read just after: "wide" (3 warm-up, 60 timed frames, then
     10 at metallic 0.5), then "pallas4" and "pallas" (3 warm-up, 20 timed,
@@ -34,14 +38,16 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     kbench's own run of those variants on both full sets with its gate
     against K1.
 The second-to-last line is a JSON summary of the kernels (launches on
-their path, parity error, kernel / plain times, the bound; K1's times are
-of the full primary wave, K2's and K3's of the row pass); the last line
-is {"ok": true, "device": {...}}.  Needs CUDA: without it this exits
-non-zero and prints no result.  Imports nothing of JAX or the JAX package.
+their path, parity error, kernel / plain times, the bound; K1's, K4's and
+K5's times are of the full primary wave, K2's and K3's of the row pass);
+the last line is {"ok": true, "device": {...}}.  Needs CUDA: without it
+this exits non-zero and prints no result.  Imports nothing of JAX or the
+JAX package.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -116,15 +122,36 @@ def machine():
 
 
 # ---------------------------------------------------------------- phase 1
+def ptxas_reports(log):
+    """{mangled kernel name: (registers, stack frame bytes, spill store
+    bytes, spill load bytes)} from nvcc's -Xptxas=-v log."""
+    out, name, frame = {}, None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes stack frame" in line:
+            frame = [int(w) for w in line.replace(",", " ").split()
+                     if w.isdigit()]
+        elif "Used" in line and "registers" in line and name:
+            regs = int(line.split("Used")[1].split()[0])
+            out[name] = (regs, *frame)
+            name = None
+    return out
+
+
 def build_kernels():
     from raytracedggx_tpu_torch.ops import cuda_lib
 
     path, log, secs = cuda_lib.build()
     cuda_lib.load_library()
     print(f"built {os.path.relpath(path, ROOT)} in {secs:.3f} s")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
-            print("  ptxas", line.strip())
+    reports = ptxas_reports(log)
+    for name, (regs, frame, st, ld) in reports.items():
+        print(f"  ptxas {name}: {regs} registers, {frame} bytes stack "
+              f"frame, {st} / {ld} bytes spill stores / loads")
+    k5 = [r for name, r in reports.items() if "trace_wide4_kernel" in name]
+    check(bool(k5) and all(r[1:] == (0, 0, 0) for r in k5),
+          "K5 (both visit orders): no stack frame and no spills")
     return secs
 
 
@@ -262,6 +289,45 @@ def per_mesh_check(name, tree, kernel, o, d, t_min, t_max, inv):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
+def per_mesh_wave_check(label, trees, o, d, t_min, t_max, inv):
+    """K4 and K5 on one full wave of the frame in the model instance's
+    object space (through the inverse world, as trace_scene_flat /
+    trace_scene4 launch them), against one run of the plain version over
+    the whole wave, compared by original triangle id.  trees: {label:
+    (tree, wrapper)}, "K4" among them; returns {label: dict(max_abs_err,
+    ms, plain_ms, bound_ms, bound_by)}."""
+    from raytracedggx_tpu_torch.ops.traverse_cuda import trace_stream_plain
+
+    flat = trees["K4"][0]
+    ref, plain_ms = timed_once(lambda: trace_stream_plain(
+        flat.tris, o, d, t_min, t_max, inv))
+    r_id = torch.where(ref[3] >= 0, flat.tri_perm[ref[3].clamp(min=0).long()],
+                       -1)
+    rows = {}
+    for key, (tree, kernel) in trees.items():
+        name = f"{key} {label}"
+
+        def kern(stats=None):
+            return kernel(tree, o, d, t_min, t_max, inv, stats)
+
+        got = kern()
+        torch.cuda.synchronize()
+        g_id = torch.where(got[3] >= 0,
+                           tree.tri_perm[got[3].clamp(min=0).long()], -1)
+        err = hold_hits(name, (got[0], g_id, None), (ref[0], r_id, None),
+                        t_max)
+        stats = torch.zeros(2, dtype=torch.int64, device=o.device)
+        kern(stats)
+        bound_ms, bound_by = trace_bound(
+            (tree.nodes, tree.tris, inv, o, d, t_max), o.shape[0], 16, stats)
+        ms = cuda_ms(kern, 20)
+        print(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.6f} ms ({bound_by})")
+        rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+    return rows
+
+
 def scene_loop_check(name, trees, scene_fn, tlas, o, d, t_max):
     """The per-instance loop (trace_scene_flat / trace_scene4) with the
     kernel against the same loop over the plain version."""
@@ -290,7 +356,7 @@ def spatial_check(aux_out, width, height):
     ms, plain_ms, bound)} with the row pass's times."""
     from raytracedggx_tpu_torch.denoise import tm
     from raytracedggx_tpu_torch.ops.spatial_cuda import (
-        diffuse_pass, diffuse_pass_plain, reflection_pass,
+        K3_PER_THREAD, diffuse_pass, diffuse_pass_plain, reflection_pass,
         reflection_pass_plain)
 
     normal, depth = aux_out["normal"], aux_out["depth"]
@@ -332,6 +398,16 @@ def spatial_check(aux_out, width, height):
             ms, plain_ms = time_pair(f"{name} axis {ax} one pass",
                                      lambda: kern(s, ax), lambda: plain(s, ax),
                                      plain_reps=5)
+            if name == "K3":      # the other compiled outputs per thread
+                k = 4 if K3_PER_THREAD == 8 else 8
+                e = (diffuse_pass(s, normal, metal, depth, ax, k) - ref).abs()
+                check(bool((e <= 2e-5 + 1e-4 * ref.abs()).all()),
+                      f"K3 axis {ax} at {k} per thread: atol 2e-5 rtol 1e-4 "
+                      f"(max err {float(e.max()):.3e})")
+                ms_k = cuda_ms(lambda: diffuse_pass(s, normal, metal, depth,
+                                                    ax, k), 20)
+                print(f"  K3 axis {ax} one pass at {k} outputs per thread: "
+                      f"{ms_k:.4f} ms ({K3_PER_THREAD}: {ms:.4f} ms)")
             along, across = (width, height) if ax == 1 else (height, width)
             bound_ms, bound_by = bound(nbytes,
                                        tap_ops * valid_taps(along, across))
@@ -692,18 +768,31 @@ def main():
     o_m, d_m = o_f[pick].contiguous(), d_f[pick].contiguous()
     t_m = torch.where(alive, t_f[pick], -1.0).contiguous()
     inv_model = inv_rows(torch.linalg.inv(worlds_f))[model].contiguous()
-    res["K4"] = per_mesh_check("K4 model mesh", flat, trace_tiles_flat, o_m,
-                               d_m, T_MIN_SECONDARY, t_m, inv_model)
-    res["K5"] = per_mesh_check("K5 model mesh", wide, trace_tiles4, o_m,
-                               d_m, T_MIN_SECONDARY, t_m, inv_model)
+    # K5 in its default near-first order, and in the TPU kernel's order
+    per_mesh_trees = {"K4": (flat, trace_tiles_flat),
+                      "K5": (wide, trace_tiles4),
+                      "K5 TPU order": (wide, functools.partial(
+                          trace_tiles4, near_first=False))}
+    checks = {k: [per_mesh_check(f"{k} model mesh", tree, kernel, o_m, d_m,
+                                 T_MIN_SECONDARY, t_m, inv_model)]
+              for k, (tree, kernel) in per_mesh_trees.items()}
+    # K4/K5 on the frame's two full waves, as the frame hands them over
+    for label, (wo, wd, wt_min, wt_max) in zip(
+            ("primary wave", "reflection wave"), waves):
+        for k, row in per_mesh_wave_check(label, per_mesh_trees, wo, wd,
+                                          wt_min, wt_max, inv_model).items():
+            checks[k].append(row)
     worlds9 = nested.worlds(np.float32(1.3)).to(dev)
     for trav, key, scene_fn in (("pallas", "flat", trace_scene_flat),
                                 ("pallas4", "wide", trace_scene4)):
         geom = upload_scene(nested, dev, traversal=trav, leaf_size=8)
         tlas = build_tlas(geom.bounds, worlds9, nested.mesh_ids)
-        scene_loop_check(f"{'K4' if trav == 'pallas' else 'K5'} 9-instance "
-                         f"scene loop", getattr(geom, key), scene_fn, tlas,
-                         o9, d9, t9)
+        k = "K4" if trav == "pallas" else "K5"
+        err = scene_loop_check(f"{k} 9-instance scene loop",
+                               getattr(geom, key), scene_fn, tlas, o9, d9, t9)
+        # the JSON line reports the full primary wave, the error of all
+        res[k] = dict(checks[k][1], max_abs_err=max(
+            err, *(r["max_abs_err"] for r in checks[k])))
 
     rm = Renderer(scene, device=dev)
     for mesh_idx in (0, 1):

@@ -39,17 +39,19 @@ SIGNATURES = {
     # out_t out_u out_v out_slot out_inst stats stream
     "rtggx_trace_instanced": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
                               _P, _P, _P, _P, _P, _P, _P),
-    # K2/K3: refl axis src normal aux depth gauss_table n_br out H W width
-    # br_max stream
-    "rtggx_spatial_pass": (_I, _I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F,
-                           _F, _P),
+    # K2: axis src normal rough depth gauss_table n_br out H W width br_max
+    # stream
+    "rtggx_reflection_pass": (_I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F,
+                              _F, _P),
+    # K3: axis per_thread src normal metal depth out H W stream
+    "rtggx_diffuse_pass": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
     # K4: nodes num_nodes tris inv ray_o ray_d t_max t_min n_rays
     # out_t out_u out_v out_pos stats stream
     "rtggx_trace_flat": (_P, _I, _P, _P, _P, _P, _P, _F, _I,
                          _P, _P, _P, _P, _P, _P),
-    # K5: nodes tris inv ray_o ray_d t_max t_min n_rays
+    # K5: nodes tris4 inv ray_o ray_d t_max t_min n_rays stack near_first
     # out_t out_u out_v out_pos stats stream
-    "rtggx_trace_wide4": (_P, _P, _P, _P, _P, _P, _F, _I,
+    "rtggx_trace_wide4": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
                           _P, _P, _P, _P, _P, _P),
     # K6a/K6b: nodes num_nodes tris attrs boxes nq inv_mats pre ray_o ray_d
     # t_max t_min n_rays L stack flags npop threads

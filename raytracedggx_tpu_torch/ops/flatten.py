@@ -78,6 +78,14 @@ def stream_rows(tri_v0, tri_e1, tri_e2, perm):
     return torch.cat([tri_v0[idx], tri_e1[idx], tri_e2[idx]], dim=1)
 
 
+def float4_rows(tris):
+    """(T, 9) rows v0 e1 e2 -> (T, 12): each vector padded to a float4
+    with a 0, so K1 and K5 read a triangle as three 16-byte loads.  Pad
+    slots keep v0 = NaN."""
+    t = tris.reshape(-1, 3, 3)
+    return torch.cat([t, torch.zeros_like(t[..., :1])], dim=2).reshape(-1, 12)
+
+
 def flatten_bvh(bvh, tri_v0, tri_e1, tri_e2, leaf_size: int = 4) -> FlatBVH:
     """bvh: LBVH; tri data (T, 3) in ORIGINAL triangle order, on the
     device the result should live on.  The recursion runs on the host."""

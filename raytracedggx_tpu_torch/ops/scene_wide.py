@@ -25,6 +25,7 @@ import torch
 from ..bvh.lbvh import build_lbvh
 from ..bvh.sah import build_sah
 from ..trace.traverse import HitRecord
+from .flatten import float4_rows
 from .fused import (build_records4_padded, trace_instanced_plain,
                     trace_tiles_instanced)
 
@@ -119,15 +120,6 @@ def tree_depth(kind, a_col) -> int:
     return int(depth[0])
 
 
-def float4_rows(tris):
-    """(S, 9) slots v0 e1 e2 -> (S, 12): each vector padded to a float4
-    with a 0, so K1 reads a slot as three 16-byte loads.  Pad slots keep
-    v0 = NaN."""
-    t = np.asarray(tris, np.float32).reshape(-1, 3, 3)
-    return np.concatenate([t, np.zeros_like(t[..., :1])], axis=2
-                          ).reshape(-1, 12)
-
-
 def _assemble(tris, attrs, kind, a_col, b_col, boxes, n_top, top_children,
               num_inst, L, stack, worlds, device) -> SceneWideBVH:
     corners, slots = _derived(kind, a_col, b_col, boxes, n_top, num_inst, L)
@@ -138,7 +130,8 @@ def _assemble(tris, attrs, kind, a_col, b_col, boxes, n_top, top_children,
                                device=device)
 
     sw = SceneWideBVH(
-        nodes=None, tris=dev(tris), tris4=dev(float4_rows(tris)),
+        nodes=None, tris=dev(tris),
+        tris4=dev(float4_rows(torch.as_tensor(tris))),
         inv_mats=None, attrs=dev(attrs),
         static_cols=dev(static_cols), mesh_boxes=dev(boxes[n_top:]),
         root_corners=dev(corners),

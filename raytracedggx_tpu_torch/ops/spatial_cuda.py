@@ -9,7 +9,8 @@ the channel-last (H, W, C) tensors with its 16-pixel halo in shared memory
 and run the 33 taps from there, with a row kernel and a column kernel in
 place of the TPU's transposed planes; out-of-bounds taps are zero-filled
 as the reference pads them (the hit gate is 0 there).  K2 reads its
-Gaussian weights from ``gaussian_table``.
+Gaussian weights from ``gaussian_table``; K3 computes ``K3_PER_THREAD``
+consecutive outputs per thread and its power 32 by five squarings.
 """
 
 from __future__ import annotations
@@ -20,10 +21,11 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.math3d import smoothstep
-from .cuda_lib import check_launch, load_library, pointer, stream_handle
+from .cuda_lib import check_launch, load_library, stream_handle
 
 RADIUS = 16
 SIGMA_Z = 4.0
+K3_PER_THREAD = 4       # K3's outputs per thread; the kernel compiles 4 and 8
 
 
 def gaussian_radius(rough, width, height):
@@ -104,7 +106,8 @@ def diffuse_pass_plain(src_tm, normal, metal, depth, axis):
     return mu / torch.clamp(wsum, min=1e-30)[..., None]
 
 
-def _launch(refl, src_tm, normal, aux, depth, width, height, axis):
+def _outputs(src_tm, normal, aux, depth, axis):
+    """Check a K2 or K3 launch's inputs and allocate its (H, W, 3) output."""
     H, W = src_tm.shape[0], src_tm.shape[1]
     dev = src_tm.device
     for name, t, shape in (("src_tm", src_tm, (H, W, 3)),
@@ -118,16 +121,7 @@ def _launch(refl, src_tm, normal, aux, depth, width, height, axis):
                              f"{tuple(t.shape)} on {t.device}")
     if axis not in (0, 1):
         raise ValueError(f"axis must be 0 or 1, got {axis}")
-    br_max = float(height * 0.05)
-    table = gaussian_table(br_max, dev) if refl else None
-    out = torch.empty((H, W, 3), dtype=torch.float32, device=dev)
-    err = load_library().rtggx_spatial_pass(
-        int(refl), int(axis), src_tm.data_ptr(), normal.data_ptr(),
-        aux.data_ptr(), depth.data_ptr(), pointer(table),
-        0 if table is None else table.shape[0], out.data_ptr(), H, W,
-        float(width), br_max, stream_handle(dev))
-    check_launch(err, "K2 reflection_pass" if refl else "K3 diffuse_pass")
-    return out
+    return torch.empty((H, W, 3), dtype=torch.float32, device=dev)
 
 
 def reflection_pass(src_tm, normal, rough, depth, width, height, axis):
@@ -136,17 +130,34 @@ def reflection_pass(src_tm, normal, rough, depth, width, height, axis):
     if src_tm.device.type == "cpu":
         return reflection_pass_plain(src_tm, normal, rough, depth, width,
                                      height, axis)
-    out = _launch(True, src_tm, normal, rough, depth, width, height, axis)
+    out = _outputs(src_tm, normal, rough, depth, axis)
+    br_max = float(height * 0.05)
+    table = gaussian_table(br_max, src_tm.device)
+    err = load_library().rtggx_reflection_pass(
+        int(axis), src_tm.data_ptr(), normal.data_ptr(), rough.data_ptr(),
+        depth.data_ptr(), table.data_ptr(), table.shape[0], out.data_ptr(),
+        out.shape[0], out.shape[1], float(width), br_max,
+        stream_handle(src_tm.device))
+    check_launch(err, "K2 reflection_pass")
     reflection_pass.launches += 1
     return out
 
 
-def diffuse_pass(src_tm, normal, metal, depth, axis):
+def diffuse_pass(src_tm, normal, metal, depth, axis,
+                 per_thread=K3_PER_THREAD):
     """K3 wrapper: the CUDA kernel for CUDA tensors (or raise), the plain
-    version for CPU tensors."""
+    version for CPU tensors.  per_thread: the kernel's outputs per thread,
+    4 or 8 (both compiled, so a measurement can set them side by side)."""
     if src_tm.device.type == "cpu":
         return diffuse_pass_plain(src_tm, normal, metal, depth, axis)
-    out = _launch(False, src_tm, normal, metal, depth, 0, 0, axis)
+    if per_thread not in (4, 8):
+        raise ValueError(f"per_thread must be 4 or 8, got {per_thread}")
+    out = _outputs(src_tm, normal, metal, depth, axis)
+    err = load_library().rtggx_diffuse_pass(
+        int(axis), int(per_thread), src_tm.data_ptr(), normal.data_ptr(),
+        metal.data_ptr(), depth.data_ptr(), out.data_ptr(), out.shape[0],
+        out.shape[1], stream_handle(src_tm.device))
+    check_launch(err, "K3 diffuse_pass")
     diffuse_pass.launches += 1
     return out
 

@@ -5,8 +5,8 @@ Torch/CUDA port of raytracedggx_tpu/ops/wide.py:35-163 (``WideBVH``,
 ``trace_rays_pallas4``, ``trace_scene_pallas4``), the
 ``traversal="pallas4"`` backend.  The TPU kernel ``_kernel`` becomes the
 CUDA kernel in ``csrc/traverse_wide4.cu``, launched by ``trace_tiles4``
-with one ray per thread and its own stack; its plain version is the
-brute-force ``trace_stream_plain`` (ops/traverse_cuda.py).
+with one ray per thread and its own stack in shared memory; its plain
+version is the brute-force ``trace_stream_plain`` (ops/traverse_cuda.py).
 
 Re-laid out for the GPU: the reference's lane-tiled (Nt, 36, 128)
 supernode columns become (N, 36) rows with K1's row layout,
@@ -14,10 +14,14 @@ supernode columns become (N, 36) rows with K1's row layout,
   cols 24..27  child kind: 0 empty, 1 leaf, 2 internal
   cols 28..31  supernode index (internal) / tri_start (leaf)
   cols 32..35  tri_count (leaf) / 0
-and the (Tt, 9, 128) triangle columns (T, 9) stream rows.  The build
-also records the tree's stack bound, 3 * depth + 1, which the wrapper
-holds against the kernel's compiled maximum (the reference's 64-entry
-SMEM stack has no overflow check).
+and the (Tt, 9, 128) triangle columns (T, 9) stream rows, beside which
+the build keeps ``tris4``, the same rows with each of v0, e1, e2 padded
+to a float4 by a 0: the kernel reads a triangle as three 16-byte loads,
+while the plain version and the kernel's bound keep the (T, 9) rows.  The
+build also records the tree's stack bound, 3 * depth + 1, by which the
+wrapper sizes the kernel's shared-memory stack and which it holds against
+the kernel's compiled maximum (the reference's 64-entry SMEM stack has no
+overflow check).
 """
 
 from __future__ import annotations
@@ -29,9 +33,10 @@ import numpy as np
 import torch
 
 from ..trace.traverse import HitRecord
-from .cuda_lib import check_launch, load_library, pointer, stream_handle
-from .flatten import (host_arrays, lane_rows, stream_rows, subtree_counts,
-                      subtree_leaves)
+from .cuda_lib import (check_launch, load_library, pointer, require,
+                       stream_handle)
+from .flatten import (float4_rows, host_arrays, lane_rows, stream_rows,
+                      subtree_counts, subtree_leaves)
 from .traverse_cuda import (launch_outputs, per_ray, trace_rays_tree,
                             trace_scene_trees, trace_stream_plain)
 
@@ -39,6 +44,7 @@ from .traverse_cuda import (launch_outputs, per_ray, trace_rays_tree,
 class WideBVH(NamedTuple):
     nodes: torch.Tensor     # (N, 36) float32
     tris: torch.Tensor      # (T, 9) float32, stream order
+    tris4: torch.Tensor     # (T, 12) float32: K5's copy, v0 _ e1 _ e2 _
     tri_perm: torch.Tensor  # (T,) int64 stream -> original triangle id
     num_nodes: int
     stack: int              # 3 * depth + 1: the deepest stack a ray needs
@@ -123,8 +129,9 @@ def flatten_bvh4(bvh, tri_v0, tri_e1, tri_e2, leaf_size: int = 4) -> WideBVH:
             arr[i, k * 6 + 3:k * 6 + 6] = c["hi"]
             arr[i, 24 + k], arr[i, 28 + k], arr[i, 32 + k] = (
                 c["kind"], c["a"], c["b"])
+    tris = stream_rows(tri_v0, tri_e1, tri_e2, tri_stream)
     return WideBVH(nodes=torch.as_tensor(arr, device=tri_v0.device),
-                   tris=stream_rows(tri_v0, tri_e1, tri_e2, tri_stream),
+                   tris=tris, tris4=float4_rows(tris),
                    tri_perm=torch.as_tensor(tri_stream, dtype=torch.int64,
                                             device=tri_v0.device),
                    num_nodes=N, stack=stack_bound(arr))
@@ -148,36 +155,48 @@ def from_reference_arrays(nodes, tris, tri_perm, num_nodes,
     """The port's WideBVH from the reference WideBVH's arrays as numpy:
     nodes (Nt, 36, 128), tris (Tt, 9, 128), tri_perm (T,)."""
     rows = lane_rows(nodes, int(num_nodes), 36)
+    tris = torch.as_tensor(lane_rows(tris, len(tri_perm), 9), device=device)
     return WideBVH(
-        nodes=torch.as_tensor(rows, device=device),
-        tris=torch.as_tensor(lane_rows(tris, len(tri_perm), 9),
-                             device=device),
+        nodes=torch.as_tensor(rows, device=device), tris=tris,
+        tris4=float4_rows(tris),
         tri_perm=torch.as_tensor(np.array(tri_perm), dtype=torch.int64,
                                  device=device),
         num_nodes=int(num_nodes), stack=stack_bound(rows))
 
 
 def trace_tiles4(wide: WideBVH, ray_o, ray_d, t_min, t_max, inv=None,
-                 stats=None):
+                 stats=None, near_first=True):
     """K5 wrapper: closest hit of (R, 3) rays against one WideBVH, in the
     object space of ``inv`` ((12,) inverse-world row, or None).  CUDA
-    tensors launch the kernel (or raise); CPU tensors take
+    tensors launch the kernel (or raise: a tree whose stack bound
+    ``wide.stack`` exceeds the kernel's compiled 64, or node and ``tris4``
+    rows that are not 16-byte aligned); CPU tensors take
     ``trace_stream_plain``.  Returns (t, u, v, stream position int32).
-    stats: optional (2,) int64 tensor for box and triangle tests."""
+    stats: optional (2,) int64 tensor for box and triangle tests.
+    near_first: the kernel's visit order, near children first (the
+    faster), or the TPU kernel's fixed child order, which resolves
+    exact-t ties as the reference does."""
     t_max = per_ray(t_max, ray_o)
     if ray_o.device.type == "cpu":
         return trace_stream_plain(wide.tris, ray_o, ray_d, t_min, t_max,
                                   inv)
     out = launch_outputs(wide, 36, ray_o, ray_d, inv, stats)
+    require("tris4", wide.tris4, (wide.tris.shape[0], 12), torch.float32,
+            ray_o.device)
+    for name, t in (("nodes", wide.nodes), ("tris4", wide.tris4)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: K5 reads float4 rows, need a "
+                             f"16-byte aligned tensor")
     lib = load_library()
-    if wide.stack > lib.rtggx_k5_max_stack():
+    if not 1 <= wide.stack <= lib.rtggx_k5_max_stack():
         raise ValueError(f"the tree needs a stack of {wide.stack}; K5 "
                          f"holds {lib.rtggx_k5_max_stack()}")
     err = lib.rtggx_trace_wide4(
-        wide.nodes.data_ptr(), wide.tris.data_ptr(), pointer(inv),
+        wide.nodes.data_ptr(), wide.tris4.data_ptr(), pointer(inv),
         ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(), float(t_min),
-        ray_o.shape[0], *(x.data_ptr() for x in out), pointer(stats),
-        stream_handle(ray_o.device))
+        ray_o.shape[0], int(wide.stack), int(near_first),
+        *(x.data_ptr() for x in out),
+        pointer(stats), stream_handle(ray_o.device))
     check_launch(err, "K5 trace_tiles4")
     trace_tiles4.launches += 1
     return out

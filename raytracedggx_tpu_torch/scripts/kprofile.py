@@ -1,4 +1,5 @@
-"""Device-time profile of the "wide" frame and of its kernels K1-K3.
+"""Device-time profile of the "wide" and "pallas4" frames and of their
+kernels K1, K2, K3 and K5.
 
     python -m raytracedggx_tpu_torch.scripts.kprofile [frames]
 
@@ -20,14 +21,22 @@ activities), it prints:
 * per launch: K1's device time on each of the first frame's waves, as the
   renderer hands them to ``trace_scene_wide_fused`` (primary in screen-block
   order, then the sorted reflection wave), and K2's and K3's on each axis
-  over the metallic-0.5 frame's G-buffers: the mean of the kernel's own
+  over the metallic-0.5 frame's G-buffers: the median of the kernel's own
   device time over ``frames`` launches;
+* the ``traversal="pallas4"`` path: ms per frame (20 frames after 3
+  warm-up), its profile as above (device busy, idle share, K5's share),
+  K5's mean device ms per launch over the profiled frames, and K5's device
+  ms per launch on the "wide" frame's two waves in the model instance's
+  object space (``trace_tiles4`` with the inverse world, as
+  ``trace_scene4`` launches it);
 * a last line with all of it as JSON, with the card's name and power limit.
 
-It reads only public entry points (``Renderer`` and its ``trace_hook``,
-``trace_scene_wide_fused``, ``reflection_pass``, ``diffuse_pass``) and the
-kernels' names, so one file measures any tree of the port whose
-``Renderer`` has ``trace_hook``.  Needs a CUDA device.
+It reads only public entry points (``Renderer`` and its ``trace_hook`` and
+``geom``, ``trace_scene_wide_fused``, ``trace_tiles4``,
+``reflection_pass``, ``diffuse_pass``) and the kernels' names (each
+kernel's name in this tree and the one it had before), so one file
+measures any tree of the port whose ``Renderer`` has ``trace_hook``.
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from __future__ import annotations
 import cProfile
 import json
 import pstats
+import statistics
 import subprocess
 import sys
 import time
@@ -42,10 +52,16 @@ import time
 import torch
 
 W, H = 1280, 720
-TIMED, TIMED_METAL = 60, 10
-KERNELS = {"K1": "trace_instanced_kernel",
-           "K2": "spatial_pass_kernel<true",
-           "K3": "spatial_pass_kernel<false"}
+TIMED, TIMED_METAL, TIMED_PALLAS4 = 60, 10, 20
+# device kernel names, this tree's and the one each had before
+KERNELS = {"K1": ("trace_instanced_kernel",),
+           "K2": ("reflection_pass_kernel", "spatial_pass_kernel<true"),
+           "K3": ("diffuse_pass_kernel", "spatial_pass_kernel<false"),
+           "K5": ("trace_wide4_kernel",)}
+
+
+def named(name, keys) -> bool:
+    return any(k in name for k in keys)
 
 
 def card_line() -> str:
@@ -86,12 +102,20 @@ def profiled(fn, n):
     return device_events(prof), wall
 
 
-def kernel_ms(fn, key, n):
-    """Mean device ms of the kernel named like ``key`` per launch."""
-    ev = [e for e in profiled(fn, n)[0] if key in e[0]]
+def launch_ms(events, keys):
+    """(median device ms per launch, launches) of the kernel named like one
+    of ``keys`` among ``events``.  The median: a profiled window now and
+    then records some launches of a kernel far shorter than the rest."""
+    ev = [e for e in events if named(e[0], keys)]
     if not ev:
-        raise RuntimeError(f"no device time recorded for {key!r}")
-    return sum(b - a for _, a, b in ev) / len(ev) / 1e3, len(ev)
+        raise RuntimeError(f"no device time recorded for {keys!r}")
+    return statistics.median(b - a for _, a, b in ev) / 1e3, len(ev)
+
+
+def kernel_ms(fn, keys, n):
+    """Median device ms per launch of the kernel named like one of
+    ``keys`` over n runs of fn()."""
+    return launch_ms(profiled(fn, n)[0], keys)
 
 
 def frames_ms(renderer, state, n):
@@ -118,12 +142,16 @@ def frame_profile(renderer, state, n, label):
     by_name = {}
     for name, a, b in ev:
         by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
-    share = {k: sum(v for name, v in by_name.items() if key in name) / busy
-             for k, key in KERNELS.items()}
+    share = {k: sum(v for name, v in by_name.items() if named(name, keys))
+             / busy for k, keys in KERNELS.items()}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     res = dict(wall_ms=wall / n, busy_ms=busy / n, idle=1.0 - busy / wall,
                ops=len(ev) / n, share=share,
                top={name[:90]: ms / n for name, ms in top})
+    k5 = [b - a for name, a, b in ev if named(name, KERNELS["K5"])]
+    if k5:    # all of the frame's K5 launches, the model's and the ground's
+        res["K5_ms_per_launch"] = sum(k5) / len(k5) / 1e3
+        res["K5_launches"] = len(k5)
     print(f"{label}: wall {res['wall_ms']:.4f} ms/frame (profiler on), "
           f"device busy {res['busy_ms']:.4f} ms/frame, idle share "
           f"{res['idle']:.4f}, {res['ops']:.1f} device ops/frame; share of "
@@ -179,6 +207,37 @@ def frame_waves(renderer):
     return box["sw"], worlds, waves
 
 
+def pallas4_profile(scene, waves, worlds, n, out):
+    """The "pallas4" path: frame ms, its profile, and K5 per launch on the
+    "wide" frame's waves in the model instance's object space."""
+    from ..engine import RenderConfig, Renderer
+    from ..ops.traverse_cuda import inv_rows
+    from ..ops.wide import trace_tiles4
+
+    r4 = Renderer(scene, config=RenderConfig(traversal="pallas4"),
+                  device="cuda")
+    state = r4.init_state()
+    for _ in range(3):
+        state, _, _ = r4.step(state)
+    state, out["pallas4_frame_ms"] = frames_ms(r4, state, TIMED_PALLAS4)
+    print(f"pallas4 frame: {out['pallas4_frame_ms']:.4f} ms over "
+          f"{TIMED_PALLAS4} frames", flush=True)
+    state, _, prof = frame_profile(r4, state, n, "pallas4 frame")
+    out["pallas4_frame"] = prof
+    print(f"K5 in the pallas4 frame: {prof['K5_ms_per_launch']:.4f} ms per "
+          f"launch (mean) over {prof['K5_launches']} launches", flush=True)
+    model = scene.mesh_ids.index(1)        # the instance of mesh 1
+    wide = r4.geom.wide[1]
+    inv = inv_rows(torch.linalg.inv(worlds))[model].contiguous()
+    for label, (o, d, t_min, t_max) in zip(("primary", "reflection"), waves):
+        ms, cnt = kernel_ms(lambda: trace_tiles4(wide, o, d, t_min, t_max,
+                                                 inv), KERNELS["K5"], n)
+        out[f"K5_{label}_ms"] = ms
+        print(f"K5 {label} wave ({o.shape[0]} rays, model instance, "
+              f"{wide.num_nodes} supernodes): {ms:.4f} ms per launch over "
+              f"{cnt} launches", flush=True)
+
+
 def main(argv=None) -> int:
     from ..denoise import tm
     from ..engine import Renderer
@@ -192,10 +251,11 @@ def main(argv=None) -> int:
         raise SystemExit("kprofile needs a CUDA device")
     card = card_line()
     print(card, flush=True)
-    renderer = Renderer(model_scene(), device="cuda")
+    scene = model_scene()
+    renderer = Renderer(scene, device="cuda")
     out = dict(card=card, leaf_size=renderer.config.wide_leaf_size)
 
-    sw, _, waves = frame_waves(renderer)
+    sw, worlds, waves = frame_waves(renderer)
     for label, (o, d, t_min, t_max) in zip(("primary", "reflection"), waves):
         ms, cnt = kernel_ms(lambda: trace_scene_wide_fused(sw, o, d, t_min,
                                                            t_max),
@@ -235,6 +295,7 @@ def main(argv=None) -> int:
             out[f"{k}_axis{axis}_ms"] = ms
             print(f"{k} axis {axis}: {ms:.4f} ms per pass over {cnt} "
                   f"launches", flush=True)
+    pallas4_profile(scene, waves, worlds, n, out)
     print(json.dumps(out))
     return 0
 

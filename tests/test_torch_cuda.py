@@ -6,6 +6,8 @@ GPU machine without JAX it runs on its own:
     python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -102,14 +104,15 @@ def test_k1_wrapper_refuses_deep_or_misaligned_trees(cuda):
     assert fused.trace_tiles_instanced.launches == n0
 
 
-@pytest.mark.parametrize("hw", [(45, 70), (55, 97), (720, 1280)])
+@pytest.mark.parametrize("hw", [(45, 70), (55, 97), (33, 61), (720, 1280)])
 @pytest.mark.parametrize("axis", [1, 0])
 def test_spatial_kernels_match_plain(cuda, axis, hw):
-    """Both axes at sizes that are no multiple of the kernels' tiles and
-    at the frame's; roughness in [0, 1] puts most pixels' Gaussian radius
-    at its clip 0.05 * height.  At 1280x720 some pixels have every tap's
-    weight below 1e-30 but one, whose roughness weight is 0: the kernel
-    must round that weight as the plain pass does."""
+    """Both axes at sizes that are no multiple of the kernels' tiles or of
+    K3's 4 or 8 outputs per thread, and at the frame's; roughness in
+    [0, 1] puts most pixels' Gaussian radius at its clip 0.05 * height.
+    At 1280x720 some pixels have every tap's weight below 1e-30 but one,
+    whose roughness weight is 0: the kernel must round that weight as the
+    plain pass does."""
     rng = np.random.default_rng(11)
     h, w = hw
     normal = rng.random((h, w, 4)).astype(np.float32)
@@ -127,12 +130,13 @@ def test_spatial_kernels_match_plain(cuda, axis, hw):
     metal = dev(rng.choice([0.0, 0.5, 1.0], size=(h, w)))
     depth = dev(0.3 + 0.6 * rng.random((h, w)))
     src = tm(dev(rng.random((h, w, 3)) * 3)).contiguous()
-    pairs = (
+    pairs = [
         (spatial_cuda.reflection_pass(src, nrm, rough, depth, w, h, axis),
          spatial_cuda.reflection_pass_plain(src, nrm, rough, depth, w, h,
-                                            axis)),
-        (spatial_cuda.diffuse_pass(src, nrm, metal, depth, axis),
-         spatial_cuda.diffuse_pass_plain(src, nrm, metal, depth, axis)))
+                                            axis))]
+    diff = spatial_cuda.diffuse_pass_plain(src, nrm, metal, depth, axis)
+    pairs += [(spatial_cuda.diffuse_pass(src, nrm, metal, depth, axis, k),
+               diff) for k in (4, 8)]
     for got, ref in pairs:
         torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
 
@@ -147,6 +151,8 @@ def test_wrappers_refuse_bad_inputs(cuda):
         spatial_cuda.reflection_pass(x.double(), n, a, a, 8, 8, 1)
     with pytest.raises(ValueError):
         spatial_cuda.diffuse_pass(x, n, a.t(), a, 0)
+    with pytest.raises(ValueError):
+        spatial_cuda.diffuse_pass(x, n, a, a, 0, per_thread=2)
 
 
 PER_MESH = {"K4": (flatten.flatten_bvh, traverse_cuda.trace_tiles_flat,
@@ -166,12 +172,15 @@ def _hold(got_t, got_id, ref_t, ref_id, t_max, got_inst=None, ref_inst=None):
     assert float(same[hit].float().mean()) >= 0.99
 
 
-@pytest.mark.parametrize("kernel", ["K4", "K5"])
+@pytest.mark.parametrize("kernel", ["K4", "K5", "K5 TPU order"])
 @pytest.mark.parametrize("leaf_size", [1, 8])
 def test_per_mesh_kernels_match_plain(cuda, kernel, leaf_size):
     """One mesh of random triangles, rays moved to its object space by an
-    inverse world inside the kernel, every third ray dead."""
-    flatten_fn, wrapper, _, _, _ = PER_MESH[kernel]
+    inverse world inside the kernel, every third ray dead; K5 in both its
+    visit orders."""
+    flatten_fn, wrapper, _, _, _ = PER_MESH[kernel.split()[0]]
+    if kernel == "K5 TPU order":
+        wrapper = functools.partial(wrapper, near_first=False)
     rng = np.random.default_rng(5)
     n = 3000
     base = (rng.random((n, 1, 3)) - 0.5) * 8
@@ -188,12 +197,13 @@ def test_per_mesh_kernels_match_plain(cuda, kernel, leaf_size):
     inv = traverse_cuda.inv_rows(torch.linalg.inv(world)[None])[0].to(cuda)
     o, d = _rand_rays(rng, 4096, cuda)
     t_max = torch.where(torch.arange(4096, device=cuda) % 3 == 0, -1.0, 1e4)
-    n0 = wrapper.launches
+    counter = wide.trace_tiles4 if kernel.startswith("K5") else wrapper
+    n0 = counter.launches
     stats = torch.zeros(2, dtype=torch.int64, device=cuda)
     got = wrapper(tree, o, d, 1e-4, t_max, inv, stats)
     ref = traverse_cuda.trace_stream_plain(tree.tris, o, d, 1e-4, t_max, inv)
     torch.cuda.synchronize()
-    assert wrapper.launches == n0 + 1
+    assert counter.launches == n0 + 1
     _hold(got[0], got[3], ref[0], ref[3], t_max)
     assert int(stats[0]) > 0 and int(stats[1]) > 0
 
@@ -221,6 +231,59 @@ def test_per_instance_loops_match_plain(cuda, kernel):
     assert len(set(got.inst[got.hit].tolist())) > 2
 
 
+def _comb_mesh():
+    """32 triangles whose Morton codes are 0, 2^b for b = 0..29 and all
+    ones, in a 1024-unit cube: the radix tree peels one code per level,
+    so the 4-wide tree is deep."""
+    cents = [(0.5, 0.5, 0.5)]
+    for b in range(30):
+        q = [0.5, 0.5, 0.5]
+        q[2 - b % 3] = 2 ** (b // 3) + 0.5
+        cents.append(tuple(q))
+    cents.append((1023.5, 1023.5, 1023.5))
+    c = np.array(cents, np.float32)
+    off = np.array([[-0.2, -0.1, 0.0], [0.2, -0.1, 0.1], [0.0, 0.2, -0.1]],
+                   np.float32)
+    tri = c[:, None, :] + off[None]
+    tri[0, 0] = (0.0, 0.0, 0.0)
+    tri[-1, 1] = (1024.0, 1024.0, 1024.0)
+    return tri.reshape(-1, 3), c
+
+
+def test_k5_deep_tree_matches_plain(cuda):
+    """A tree whose stack bound lies between 29 and 64, so K5's
+    shared-memory stack is sized above what the model's trees need; rays
+    aimed at the triangles walk its deepest paths."""
+    pos, cents = _comb_mesh()
+    pos = torch.as_tensor(pos, device=cuda)
+    tri = pos.reshape(-1, 3, 3)
+    v0, e1, e2 = tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
+    w4 = wide.flatten_bvh4(build_lbvh(pos, torch.arange(pos.shape[0],
+                                                        device=cuda)),
+                           v0, e1, e2, leaf_size=1)
+    assert 29 < w4.stack <= 64
+    rng = np.random.default_rng(13)
+    n = 4096
+    o = rng.uniform(-50.0, 1100.0, size=(n, 3)).astype(np.float32)
+    aim = cents[rng.integers(0, len(cents), n)] + rng.normal(
+        0.0, 0.05, size=(n, 3)).astype(np.float32)
+    d = aim - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda)
+    t_max = torch.where(torch.arange(n, device=cuda) % 3 == 0, -1.0, 1e5)
+    ref = traverse_cuda.trace_stream_plain(w4.tris, o, d, 0.0, t_max)
+    assert float((ref[3] >= 0).float().mean()) > 0.3
+    for near_first in (True, False):
+        n0 = wide.trace_tiles4.launches
+        stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+        got = wide.trace_tiles4(w4, o, d, 0.0, t_max, None, stats,
+                                near_first=near_first)
+        torch.cuda.synchronize()
+        assert wide.trace_tiles4.launches == n0 + 1
+        _hold(got[0], got[3], ref[0], ref[3], t_max)
+        assert int(stats[0]) > 0 and int(stats[1]) > 0
+
+
 def test_per_mesh_wrappers_refuse_bad_inputs(cuda):
     """Non-contiguous rays and a K5 tree deeper than the kernel's stack
     raise instead of falling back."""
@@ -237,6 +300,13 @@ def test_per_mesh_wrappers_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         wide.trace_tiles4(w4._replace(stack=10 ** 6), o.contiguous(),
                           d.contiguous(), 0.0, 1e4)
+    shifted = torch.empty(w4.tris4.numel() + 1, device=cuda)[1:]
+    shifted.copy_(w4.tris4.reshape(-1))
+    n0 = wide.trace_tiles4.launches
+    with pytest.raises(ValueError):                 # tris4 not 16-byte aligned
+        wide.trace_tiles4(w4._replace(tris4=shifted.reshape(-1, 12)),
+                          o.contiguous(), d.contiguous(), 0.0, 1e4)
+    assert wide.trace_tiles4.launches == n0
 
 
 LAB_CASES = {

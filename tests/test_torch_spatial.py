@@ -61,6 +61,41 @@ def test_plain_passes_match_reference_stencils(rng, axis):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
+def _k3_arithmetic(src_tm, normal, metal, depth, axis):
+    """K3's arithmetic (csrc/spatial.cu:diffuse_pass_kernel) in float32
+    torch: the tap's gate folded into its decoded normal, clip(n.n, 0,
+    1)^32 by five squarings, the depth weight exp(-|dz| * (z * 4)) with
+    z * 4 formed once, taps summed in the order i = -16..16."""
+    n_c = normal[..., :3] * 2.0 - 1.0
+    z4 = depth * 4.0
+    mu = torch.zeros_like(src_tm)
+    wsum = torch.zeros_like(metal)
+    for nrm, s, dep, mtl in zip(ks._taps(normal, axis), ks._taps(src_tm, axis),
+                                ks._taps(depth, axis), ks._taps(metal, axis)):
+        gate = ((nrm[..., 3] > 0.0) & (mtl < 1.0)).to(torch.float32)
+        n = (nrm[..., :3] * 2.0 - 1.0) * gate[..., None]
+        x = torch.clamp(torch.sum(n_c * n, dim=-1), 0.0, 1.0)
+        for _ in range(5):
+            x = x * x
+        w = x * torch.exp(-torch.abs(depth - dep) * z4)
+        mu = mu + s * w[..., None]
+        wsum = wsum + w
+    return mu / torch.clamp(wsum, min=1e-30)[..., None]
+
+
+@pytest.mark.parametrize("axis", [1, 0])
+def test_k3_squarings_hold_the_plain_pass(rng, axis):
+    """x^32 by five squarings (about 16 ulp from the exact power) keeps
+    K3 at the filters' bar against diffuse_pass_plain on both axes."""
+    _, t = _pair(_gbuffers(rng))
+    src = tm(t["diff"]).contiguous()
+    got = _k3_arithmetic(src, t["normal"], t["metal"], t["depth"], axis)
+    want = ks.diffuse_pass_plain(src, t["normal"], t["metal"], t["depth"],
+                                 axis)
+    assert float(want.abs().max()) > 0.1
+    torch.testing.assert_close(got, want, **TOL)
+
+
 @pytest.mark.parametrize("ref_impl", ["xla", "pallas"])
 def test_filters_match_reference(rng, ref_impl):
     j, t = _pair(_gbuffers(rng))

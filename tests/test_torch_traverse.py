@@ -149,6 +149,37 @@ def test_flatten_and_flatten4_equal_reference(leaf_size):
                                       getattr(want4, name).numpy(), name)
 
 
+@pytest.mark.parametrize("leaf_size", [1, 8])
+def test_wide_tris4_pads_each_vector(leaf_size):
+    """``WideBVH.tris4``, K5's float4 copy of the triangle rows, holds the
+    (T, 9) rows with a zero after each of v0, e1, e2, from both
+    ``flatten_bvh4`` and ``from_reference_arrays``; the trees it sits
+    beside stay the reference's bit for bit."""
+    rng = np.random.default_rng(31 + leaf_size)
+    pos, idx = random_tris(rng, 150)
+    v0, e1, e2 = mt_data(pos, idx)
+    ref4 = j_flatten4(j_build_lbvh(pos, idx), v0, e1, e2,
+                      leaf_size=leaf_size)
+    got4 = t_wide.flatten_bvh4(build_lbvh(pos, idx), t_(v0), t_(e1),
+                               t_(e2), leaf_size=leaf_size)
+    want4 = t_wide.from_reference_arrays(
+        np.asarray(ref4.nodes), np.asarray(ref4.tris),
+        np.asarray(ref4.tri_perm), ref4.num_nodes)
+    for w in (got4, want4):
+        assert w.tris4.dtype == torch.float32 and w.tris4.is_contiguous()
+        assert w.tris4.shape == (w.tris.shape[0], 12)
+        rows = w.tris4.numpy().reshape(-1, 3, 4)
+        np.testing.assert_array_equal(rows[..., :3].reshape(-1, 9),
+                                      w.tris.numpy())
+        assert not rows[..., 3].any()
+    for name in ("nodes", "tris", "tris4", "tri_perm"):
+        np.testing.assert_array_equal(getattr(got4, name).numpy(),
+                                      getattr(want4, name).numpy(), name)
+    np.testing.assert_array_equal(
+        got4.tris.numpy(),
+        t_flatten.lane_rows(ref4.tris, len(ref4.tri_perm), 9))
+
+
 def test_refit_flat_bvh_equals_reference():
     rng = np.random.default_rng(97)
     pos, idx = random_tris(rng, 97)
