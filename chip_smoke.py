@@ -19,10 +19,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     16,384 rays drawn from them, and on the 9-instance nested scene; K4 and
     K5 in the model instance's object space on 16,384 rays of the frame
     and on the frame's two full waves (one plain run per wave, compared by
-    triangle id; K5 also in the TPU kernel's visit order), and through
-    their per-instance loop on the nested scene; K2/K3 on 1280x720
-    G-buffers, both axes (K3 also at its other compiled outputs per
-    thread);
+    triangle id), and through their per-instance loop on the nested
+    scene; K2/K3 on 1280x720 G-buffers, both axes;
  4. the paths at 1280x720, each with every launch count set to 0 just
     before it and read just after: "wide" (3 warm-up, 60 timed frames, then
     10 at metallic 0.5), then "pallas4" and "pallas" (3 warm-up, 20 timed,
@@ -47,7 +45,6 @@ JAX package.
 
 from __future__ import annotations
 
-import functools
 import json
 import os
 import subprocess
@@ -150,8 +147,8 @@ def build_kernels():
         print(f"  ptxas {name}: {regs} registers, {frame} bytes stack "
               f"frame, {st} / {ld} bytes spill stores / loads")
     k5 = [r for name, r in reports.items() if "trace_wide4_kernel" in name]
-    check(bool(k5) and all(r[1:] == (0, 0, 0) for r in k5),
-          "K5 (both visit orders): no stack frame and no spills")
+    check(len(k5) == 1 and k5[0][1:] == (0, 0, 0),
+          "K5: no stack frame and no spills")
     return secs
 
 
@@ -293,9 +290,9 @@ def per_mesh_wave_check(label, trees, o, d, t_min, t_max, inv):
     """K4 and K5 on one full wave of the frame in the model instance's
     object space (through the inverse world, as trace_scene_flat /
     trace_scene4 launch them), against one run of the plain version over
-    the whole wave, compared by original triangle id.  trees: {label:
-    (tree, wrapper)}, "K4" among them; returns {label: dict(max_abs_err,
-    ms, plain_ms, bound_ms, bound_by)}."""
+    the whole wave, compared by original triangle id.  trees: {"K4" |
+    "K5": (tree, wrapper)}; returns {"K4" | "K5": dict(max_abs_err, ms,
+    plain_ms, bound_ms, bound_by)}."""
     from raytracedggx_tpu_torch.ops.traverse_cuda import trace_stream_plain
 
     flat = trees["K4"][0]
@@ -356,7 +353,7 @@ def spatial_check(aux_out, width, height):
     ms, plain_ms, bound)} with the row pass's times."""
     from raytracedggx_tpu_torch.denoise import tm
     from raytracedggx_tpu_torch.ops.spatial_cuda import (
-        K3_PER_THREAD, diffuse_pass, diffuse_pass_plain, reflection_pass,
+        diffuse_pass, diffuse_pass_plain, reflection_pass,
         reflection_pass_plain)
 
     normal, depth = aux_out["normal"], aux_out["depth"]
@@ -398,16 +395,6 @@ def spatial_check(aux_out, width, height):
             ms, plain_ms = time_pair(f"{name} axis {ax} one pass",
                                      lambda: kern(s, ax), lambda: plain(s, ax),
                                      plain_reps=5)
-            if name == "K3":      # the other compiled outputs per thread
-                k = 4 if K3_PER_THREAD == 8 else 8
-                e = (diffuse_pass(s, normal, metal, depth, ax, k) - ref).abs()
-                check(bool((e <= 2e-5 + 1e-4 * ref.abs()).all()),
-                      f"K3 axis {ax} at {k} per thread: atol 2e-5 rtol 1e-4 "
-                      f"(max err {float(e.max()):.3e})")
-                ms_k = cuda_ms(lambda: diffuse_pass(s, normal, metal, depth,
-                                                    ax, k), 20)
-                print(f"  K3 axis {ax} one pass at {k} outputs per thread: "
-                      f"{ms_k:.4f} ms ({K3_PER_THREAD}: {ms:.4f} ms)")
             along, across = (width, height) if ax == 1 else (height, width)
             bound_ms, bound_by = bound(nbytes,
                                        tap_ops * valid_taps(along, across))
@@ -768,11 +755,8 @@ def main():
     o_m, d_m = o_f[pick].contiguous(), d_f[pick].contiguous()
     t_m = torch.where(alive, t_f[pick], -1.0).contiguous()
     inv_model = inv_rows(torch.linalg.inv(worlds_f))[model].contiguous()
-    # K5 in its default near-first order, and in the TPU kernel's order
     per_mesh_trees = {"K4": (flat, trace_tiles_flat),
-                      "K5": (wide, trace_tiles4),
-                      "K5 TPU order": (wide, functools.partial(
-                          trace_tiles4, near_first=False))}
+                      "K5": (wide, trace_tiles4)}
     checks = {k: [per_mesh_check(f"{k} model mesh", tree, kernel, o_m, d_m,
                                  T_MIN_SECONDARY, t_m, inv_model)]
               for k, (tree, kernel) in per_mesh_trees.items()}

@@ -44,9 +44,9 @@
 // the filters' 2e-5 bar.
 //
 // K3 (diffuse_pass_kernel<AXIS, K>): K consecutive outputs per thread
-// along the pass axis (register blocking, K = 4 by measurement, 8
-// compiled beside it: at 8 the kernel takes 128 registers, two blocks
-// an SM).  A thread walks the 32 + K staged taps of its
+// along the pass axis (register blocking; K = 4 by measurement: at 8 the
+// kernel took 128 registers, two blocks an SM, and ran slower on both
+// axes, PERF.md).  A thread walks the 32 + K staged taps of its
 // outputs once and applies each to every output whose window holds it,
 // so a tap's eight shared loads serve up to K outputs: (32 + K) * 8 / K
 // loads per output, not 33 * 7.  The outputs' decoded normals and depths
@@ -73,6 +73,7 @@ constexpr int kRadius = 16;
 constexpr int kHalf = kRadius + 1;  // Gaussian table columns |i| = 0..16
 constexpr float kSigmaZ = 4.0f;
 constexpr int kThreads = 256;
+constexpr int kDiffPerThread = 4;  // K3's K
 
 __device__ __forceinline__ float clip01(float x) { return fminf(fmaxf(x, 0.0f), 1.0f); }
 
@@ -414,8 +415,8 @@ extern "C" int rtggx_reflection_pass(int axis, const void* src,
                    : launch_reflection<0>(s, n, a, z, g, n_br, o, H, W, width, br_max, st);
 }
 
-// K3: per_thread = outputs per thread, 4 or 8.
-extern "C" int rtggx_diffuse_pass(int axis, int per_thread, const void* src,
+// K3: axis as for K2.
+extern "C" int rtggx_diffuse_pass(int axis, const void* src,
                                   const void* normal, const void* metal,
                                   const void* depth, void* out, int H, int W,
                                   void* stream) {
@@ -426,11 +427,6 @@ extern "C" int rtggx_diffuse_pass(int axis, int per_thread, const void* src,
   const float* z = (const float*)depth;
   float* o = (float*)out;
   const cudaStream_t st = (cudaStream_t)stream;
-  if (per_thread == 8)
-    return axis == 1 ? launch_diffuse<1, 8>(s, n, m, z, o, H, W, st)
-                     : launch_diffuse<0, 8>(s, n, m, z, o, H, W, st);
-  if (per_thread == 4)
-    return axis == 1 ? launch_diffuse<1, 4>(s, n, m, z, o, H, W, st)
-                     : launch_diffuse<0, 4>(s, n, m, z, o, H, W, st);
-  return (int)cudaErrorInvalidValue;
+  return axis == 1 ? launch_diffuse<1, kDiffPerThread>(s, n, m, z, o, H, W, st)
+                   : launch_diffuse<0, kDiffPerThread>(s, n, m, z, o, H, W, st);
 }

@@ -4,7 +4,7 @@
 // Replaces the TPU kernel raytracedggx_tpu/ops/wide.py:_kernel (launched
 // by trace_tiles4).
 //
-// Contract (identical outputs to the TPU kernel):
+// Contract (the TPU kernel's outputs, up to exact-t ties):
 //   * nodes (N, 36) f32 rows, read as nine float4, the layout of K1's node
 //     rows: 4 child boxes (lo.xyz, hi.xyz) at 6k, child kind at 24+k (0
 //     empty / 1 leaf / 2 internal), at 28+k the supernode index (internal)
@@ -15,21 +15,16 @@
 //     (WideBVH.tris4, the (T, 9) rows each padded with a 0).
 //   * inv (12 floats, or null): the instance's inverse world, 3x3
 //     row-major then translation (o*M + t, d*M, t in world units).
-//   * per ray: stack = [0]; pop a supernode and slab-test its children's
-//     boxes against the ray's best t; test hit leaves (Moller-Trumbore,
-//     exact 1/det, accepted on t <= best_t) and push hit internal
-//     children.  Two visit orders (near_first):
-//       - near first (the default): the four boxes are tested at the pop;
-//         the hit leaves run in child order, each while its entry distance
-//         still passes the shrinking best_t; the internal children that
-//         still pass are pushed far to near (a 5-exchange network), so the
-//         nearest pops next, as in K1;
-//       - the TPU's: for child k = 3, 2, 1, 0 the box is tested against
-//         the best t so far, a hit leaf is tested at once, a hit internal
-//         child is pushed, so child 0 pops first; exact-t ties then
-//         resolve as on the TPU.
-//     Both take the same comparisons, so they find the same hits and t;
-//     of two triangles at exactly the same t they may keep different ones.
+//   * per ray: stack = [0]; pop a supernode and slab-test its four
+//     children's boxes against the ray's best t; the hit leaves run in
+//     child order, each while its entry distance still passes the
+//     shrinking best t (Moller-Trumbore, exact 1/det, accepted on
+//     t <= best_t); the hit internal children that still pass are pushed
+//     far to near (a 5-exchange network), so the nearest pops next, as in
+//     K1.  The TPU kernel visits in a fixed order (children 3..0, a hit
+//     leaf tested at once, child 0 popped first); the comparisons are the
+//     same, so both find the same hits and t, but of two triangles at
+//     exactly the same t they may keep different ones.
 //   * the stack holds at most 3 * depth + 1 entries (WideBVH.stack); the
 //     wrapper raises when that exceeds K5_MAX_STACK (the TPU's 64-entry
 //     SMEM stack had no check at all).
@@ -56,12 +51,12 @@
 //     array is indexed at run time in local memory (the children are
 //     unrolled, their fields picked from the float4 by constant lanes);
 //   * stats summed over the warp first, one pair of atomics per warp;
-//   * near-first order by default.  On the frame's waves nearly all the
-//     time goes to the few warps whose rays enter the mesh, each a chain
-//     of dependent node and leaf visits; visiting near children first
-//     finds the hit sooner and prunes more of the rest: fewer box and
-//     triangle tests than the TPU's order on the same rays, and a shorter
-//     chain for the slowest warps (PERF.md).
+//   * near-first order.  On the frame's waves nearly all the time goes to
+//     the few warps whose rays enter the mesh, each a chain of dependent
+//     node and leaf visits; visiting near children first finds the hit
+//     sooner and prunes more of the rest: fewer box and triangle tests
+//     than the TPU's order on the same rays, and a shorter chain for the
+//     slowest warps (PERF.md).
 // Coherence within a warp comes from the caller's ray order.  No fast
 // math: empty boxes must fail every comparison.
 
@@ -136,7 +131,6 @@ __device__ __forceinline__ void leaf_hit(const float4* __restrict__ tris,
   }
 }
 
-template <bool NEAR_FIRST>
 __global__ void __launch_bounds__(K5_THREADS)
 trace_wide4_kernel(const float4* __restrict__ nodes,
                    const float4* __restrict__ tris,
@@ -169,65 +163,41 @@ trace_wide4_kernel(const float4* __restrict__ nodes,
                              __ldg(nd + 3), __ldg(nd + 4), __ldg(nd + 5)};
         const float4 kinds = __ldg(nd + 6), addrs = __ldg(nd + 7),
                      counts = __ldg(nd + 8);
-        if (NEAR_FIRST) {
-          // the four boxes against best_t at the pop; leaves in child
-          // order while their entry distance still passes; internal
-          // children that still pass pushed far to near
-          float tn[4];
-          bool hit[4];
+        float tn[4];  // entry distances
+        bool hit[4];
 #pragma unroll
-          for (int k = 0; k < 4; ++k)
-            hit[k] = lane(kinds, k) != 0.0f &&
-                     child_hit(b, k, ray, t_min, best_t, tn[k]);
-          float key[4];
-          int val[4];  // -1: not pushed
+        for (int k = 0; k < 4; ++k)
+          hit[k] = lane(kinds, k) != 0.0f &&
+                   child_hit(b, k, ray, t_min, best_t, tn[k]);
 #pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int kind = (int)lane(kinds, k);
-            n_box += kind != 0;
-            if (hit[k] && kind == 1 && tn[k] <= best_t) {
-              const int a = (int)lane(addrs, k), end = a + (int)lane(counts, k);
-              n_tri += end - a;
-              leaf_hit(tris, a, end, ray, t_min, best_t, best_u, best_v, best_pos);
-            }
-          }
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const bool push = hit[k] && lane(kinds, k) == 2.0f && tn[k] <= best_t;
-            key[k] = push ? tn[k] : -CUDART_INF_F;
-            val[k] = push ? (int)lane(addrs, k) : -1;
-          }
-          exchange(key[0], val[0], key[1], val[1]);
-          exchange(key[2], val[2], key[3], val[3]);
-          exchange(key[0], val[0], key[2], val[2]);
-          exchange(key[1], val[1], key[3], val[3]);
-          exchange(key[1], val[1], key[2], val[2]);
-          // the wrapper sizes the stack from the tree's bound, which no
-          // walk exceeds; the test only keeps a malformed tree inside the
-          // allocation
-#pragma unroll
-          for (int p = 0; p < 4; ++p)
-            if (val[p] >= 0 && sp < stack_size) stack[K5_THREADS * sp++] = val[p];
-          continue;
-        }
-        // the TPU's order: children 3..0, each box against the best_t so
-        // far, a hit leaf tested at once, a hit internal child pushed
-#pragma unroll
-        for (int k = 3; k >= 0; --k) {
+        for (int k = 0; k < 4; ++k) {  // leaves in child order
           const int kind = (int)lane(kinds, k);
-          if (kind == 0) continue;
-          ++n_box;
-          float tn;
-          if (!child_hit(b, k, ray, t_min, best_t, tn)) continue;
-          const int a = (int)lane(addrs, k);
-          if (kind == 2) {
-            if (sp < stack_size) stack[K5_THREADS * sp++] = a;
-            continue;
+          n_box += kind != 0;
+          if (hit[k] && kind == 1 && tn[k] <= best_t) {
+            const int a = (int)lane(addrs, k), end = a + (int)lane(counts, k);
+            n_tri += end - a;
+            leaf_hit(tris, a, end, ray, t_min, best_t, best_u, best_v, best_pos);
           }
-          const int end = a + (int)lane(counts, k);
-          n_tri += end - a;
-          leaf_hit(tris, a, end, ray, t_min, best_t, best_u, best_v, best_pos);
         }
+        float key[4];
+        int val[4];  // -1: not pushed
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const bool push = hit[k] && lane(kinds, k) == 2.0f && tn[k] <= best_t;
+          key[k] = push ? tn[k] : -CUDART_INF_F;
+          val[k] = push ? (int)lane(addrs, k) : -1;
+        }
+        exchange(key[0], val[0], key[1], val[1]);
+        exchange(key[2], val[2], key[3], val[3]);
+        exchange(key[0], val[0], key[2], val[2]);
+        exchange(key[1], val[1], key[3], val[3]);
+        exchange(key[1], val[1], key[2], val[2]);
+        // far first, so the nearest child is popped next.  The wrapper
+        // sizes the stack from the tree's bound, which no walk exceeds;
+        // the test only keeps a malformed tree inside the allocation
+#pragma unroll
+        for (int p = 0; p < 4; ++p)
+          if (val[p] >= 0 && sp < stack_size) stack[K5_THREADS * sp++] = val[p];
       }
     }
     out_t[r] = best_t;
@@ -249,21 +219,18 @@ trace_wide4_kernel(const float4* __restrict__ nodes,
 
 // stack_size: entries per thread, the tree's bound (1..K5_MAX_STACK); the
 // launch takes stack_size * 128 * 4 bytes of shared memory per block.
-// near_first: 0 = the TPU's visit order, 1 = near first.
 extern "C" int rtggx_trace_wide4(const void* nodes, const void* tris4,
                                  const void* inv, const void* ray_o,
                                  const void* ray_d, const void* t_max,
                                  float t_min, int n_rays, int stack_size,
-                                 int near_first, void* out_t, void* out_u,
-                                 void* out_v, void* out_pos, void* stats,
-                                 void* stream) {
+                                 void* out_t, void* out_u, void* out_v,
+                                 void* out_pos, void* stats, void* stream) {
   if (n_rays <= 0) return 0;
   if (stack_size < 1 || stack_size > K5_MAX_STACK)
     return (int)cudaErrorInvalidValue;
   const int blocks = (n_rays + K5_THREADS - 1) / K5_THREADS;
   const size_t smem = sizeof(int) * K5_THREADS * stack_size;
-  auto kernel = near_first ? trace_wide4_kernel<true> : trace_wide4_kernel<false>;
-  kernel<<<blocks, K5_THREADS, smem, (cudaStream_t)stream>>>(
+  trace_wide4_kernel<<<blocks, K5_THREADS, smem, (cudaStream_t)stream>>>(
       (const float4*)nodes, (const float4*)tris4, (const float*)inv,
       (const float*)ray_o, (const float*)ray_d, (const float*)t_max, t_min,
       n_rays, stack_size, (float*)out_t, (float*)out_u, (float*)out_v,

@@ -43,15 +43,15 @@ SIGNATURES = {
     # stream
     "rtggx_reflection_pass": (_I, _P, _P, _P, _P, _P, _I, _P, _I, _I, _F,
                               _F, _P),
-    # K3: axis per_thread src normal metal depth out H W stream
-    "rtggx_diffuse_pass": (_I, _I, _P, _P, _P, _P, _P, _I, _I, _P),
+    # K3: axis src normal metal depth out H W stream
+    "rtggx_diffuse_pass": (_I, _P, _P, _P, _P, _P, _I, _I, _P),
     # K4: nodes num_nodes tris inv ray_o ray_d t_max t_min n_rays
     # out_t out_u out_v out_pos stats stream
     "rtggx_trace_flat": (_P, _I, _P, _P, _P, _P, _P, _F, _I,
                          _P, _P, _P, _P, _P, _P),
-    # K5: nodes tris4 inv ray_o ray_d t_max t_min n_rays stack near_first
+    # K5: nodes tris4 inv ray_o ray_d t_max t_min n_rays stack
     # out_t out_u out_v out_pos stats stream
-    "rtggx_trace_wide4": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
+    "rtggx_trace_wide4": (_P, _P, _P, _P, _P, _P, _F, _I, _I,
                           _P, _P, _P, _P, _P, _P),
     # K6a/K6b: nodes num_nodes tris attrs boxes nq inv_mats pre ray_o ray_d
     # t_max t_min n_rays L stack flags npop threads

@@ -9,8 +9,8 @@ the channel-last (H, W, C) tensors with its 16-pixel halo in shared memory
 and run the 33 taps from there, with a row kernel and a column kernel in
 place of the TPU's transposed planes; out-of-bounds taps are zero-filled
 as the reference pads them (the hit gate is 0 there).  K2 reads its
-Gaussian weights from ``gaussian_table``; K3 computes ``K3_PER_THREAD``
-consecutive outputs per thread and its power 32 by five squarings.
+Gaussian weights from ``gaussian_table``; K3 computes four consecutive
+outputs per thread and its power 32 by five squarings.
 """
 
 from __future__ import annotations
@@ -25,7 +25,6 @@ from .cuda_lib import check_launch, load_library, stream_handle
 
 RADIUS = 16
 SIGMA_Z = 4.0
-K3_PER_THREAD = 4       # K3's outputs per thread; the kernel compiles 4 and 8
 
 
 def gaussian_radius(rough, width, height):
@@ -143,18 +142,14 @@ def reflection_pass(src_tm, normal, rough, depth, width, height, axis):
     return out
 
 
-def diffuse_pass(src_tm, normal, metal, depth, axis,
-                 per_thread=K3_PER_THREAD):
+def diffuse_pass(src_tm, normal, metal, depth, axis):
     """K3 wrapper: the CUDA kernel for CUDA tensors (or raise), the plain
-    version for CPU tensors.  per_thread: the kernel's outputs per thread,
-    4 or 8 (both compiled, so a measurement can set them side by side)."""
+    version for CPU tensors."""
     if src_tm.device.type == "cpu":
         return diffuse_pass_plain(src_tm, normal, metal, depth, axis)
-    if per_thread not in (4, 8):
-        raise ValueError(f"per_thread must be 4 or 8, got {per_thread}")
     out = _outputs(src_tm, normal, metal, depth, axis)
     err = load_library().rtggx_diffuse_pass(
-        int(axis), int(per_thread), src_tm.data_ptr(), normal.data_ptr(),
+        int(axis), src_tm.data_ptr(), normal.data_ptr(),
         metal.data_ptr(), depth.data_ptr(), out.data_ptr(), out.shape[0],
         out.shape[1], stream_handle(src_tm.device))
     check_launch(err, "K3 diffuse_pass")

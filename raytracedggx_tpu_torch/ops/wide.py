@@ -165,17 +165,14 @@ def from_reference_arrays(nodes, tris, tri_perm, num_nodes,
 
 
 def trace_tiles4(wide: WideBVH, ray_o, ray_d, t_min, t_max, inv=None,
-                 stats=None, near_first=True):
+                 stats=None):
     """K5 wrapper: closest hit of (R, 3) rays against one WideBVH, in the
     object space of ``inv`` ((12,) inverse-world row, or None).  CUDA
     tensors launch the kernel (or raise: a tree whose stack bound
     ``wide.stack`` exceeds the kernel's compiled 64, or node and ``tris4``
     rows that are not 16-byte aligned); CPU tensors take
     ``trace_stream_plain``.  Returns (t, u, v, stream position int32).
-    stats: optional (2,) int64 tensor for box and triangle tests.
-    near_first: the kernel's visit order, near children first (the
-    faster), or the TPU kernel's fixed child order, which resolves
-    exact-t ties as the reference does."""
+    stats: optional (2,) int64 tensor for box and triangle tests."""
     t_max = per_ray(t_max, ray_o)
     if ray_o.device.type == "cpu":
         return trace_stream_plain(wide.tris, ray_o, ray_d, t_min, t_max,
@@ -194,8 +191,7 @@ def trace_tiles4(wide: WideBVH, ray_o, ray_d, t_min, t_max, inv=None,
     err = lib.rtggx_trace_wide4(
         wide.nodes.data_ptr(), wide.tris4.data_ptr(), pointer(inv),
         ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(), float(t_min),
-        ray_o.shape[0], int(wide.stack), int(near_first),
-        *(x.data_ptr() for x in out),
+        ray_o.shape[0], int(wide.stack), *(x.data_ptr() for x in out),
         pointer(stats), stream_handle(ray_o.device))
     check_launch(err, "K5 trace_tiles4")
     trace_tiles4.launches += 1

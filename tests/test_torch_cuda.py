@@ -6,8 +6,6 @@ GPU machine without JAX it runs on its own:
     python -m pytest -q --noconftest tests/test_torch_cuda.py
 """
 
-import functools
-
 import numpy as np
 import pytest
 import torch
@@ -108,7 +106,7 @@ def test_k1_wrapper_refuses_deep_or_misaligned_trees(cuda):
 @pytest.mark.parametrize("axis", [1, 0])
 def test_spatial_kernels_match_plain(cuda, axis, hw):
     """Both axes at sizes that are no multiple of the kernels' tiles or of
-    K3's 4 or 8 outputs per thread, and at the frame's; roughness in
+    K3's 4 outputs per thread, and at the frame's; roughness in
     [0, 1] puts most pixels' Gaussian radius at its clip 0.05 * height.
     At 1280x720 some pixels have every tap's weight below 1e-30 but one,
     whose roughness weight is 0: the kernel must round that weight as the
@@ -134,9 +132,9 @@ def test_spatial_kernels_match_plain(cuda, axis, hw):
         (spatial_cuda.reflection_pass(src, nrm, rough, depth, w, h, axis),
          spatial_cuda.reflection_pass_plain(src, nrm, rough, depth, w, h,
                                             axis))]
-    diff = spatial_cuda.diffuse_pass_plain(src, nrm, metal, depth, axis)
-    pairs += [(spatial_cuda.diffuse_pass(src, nrm, metal, depth, axis, k),
-               diff) for k in (4, 8)]
+    pairs.append(
+        (spatial_cuda.diffuse_pass(src, nrm, metal, depth, axis),
+         spatial_cuda.diffuse_pass_plain(src, nrm, metal, depth, axis)))
     for got, ref in pairs:
         torch.testing.assert_close(got, ref, atol=2e-5, rtol=1e-4)
 
@@ -151,8 +149,6 @@ def test_wrappers_refuse_bad_inputs(cuda):
         spatial_cuda.reflection_pass(x.double(), n, a, a, 8, 8, 1)
     with pytest.raises(ValueError):
         spatial_cuda.diffuse_pass(x, n, a.t(), a, 0)
-    with pytest.raises(ValueError):
-        spatial_cuda.diffuse_pass(x, n, a, a, 0, per_thread=2)
 
 
 PER_MESH = {"K4": (flatten.flatten_bvh, traverse_cuda.trace_tiles_flat,
@@ -172,15 +168,12 @@ def _hold(got_t, got_id, ref_t, ref_id, t_max, got_inst=None, ref_inst=None):
     assert float(same[hit].float().mean()) >= 0.99
 
 
-@pytest.mark.parametrize("kernel", ["K4", "K5", "K5 TPU order"])
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
 @pytest.mark.parametrize("leaf_size", [1, 8])
 def test_per_mesh_kernels_match_plain(cuda, kernel, leaf_size):
     """One mesh of random triangles, rays moved to its object space by an
-    inverse world inside the kernel, every third ray dead; K5 in both its
-    visit orders."""
-    flatten_fn, wrapper, _, _, _ = PER_MESH[kernel.split()[0]]
-    if kernel == "K5 TPU order":
-        wrapper = functools.partial(wrapper, near_first=False)
+    inverse world inside the kernel, every third ray dead."""
+    flatten_fn, wrapper, _, _, _ = PER_MESH[kernel]
     rng = np.random.default_rng(5)
     n = 3000
     base = (rng.random((n, 1, 3)) - 0.5) * 8
@@ -197,13 +190,12 @@ def test_per_mesh_kernels_match_plain(cuda, kernel, leaf_size):
     inv = traverse_cuda.inv_rows(torch.linalg.inv(world)[None])[0].to(cuda)
     o, d = _rand_rays(rng, 4096, cuda)
     t_max = torch.where(torch.arange(4096, device=cuda) % 3 == 0, -1.0, 1e4)
-    counter = wide.trace_tiles4 if kernel.startswith("K5") else wrapper
-    n0 = counter.launches
+    n0 = wrapper.launches
     stats = torch.zeros(2, dtype=torch.int64, device=cuda)
     got = wrapper(tree, o, d, 1e-4, t_max, inv, stats)
     ref = traverse_cuda.trace_stream_plain(tree.tris, o, d, 1e-4, t_max, inv)
     torch.cuda.synchronize()
-    assert counter.launches == n0 + 1
+    assert wrapper.launches == n0 + 1
     _hold(got[0], got[3], ref[0], ref[3], t_max)
     assert int(stats[0]) > 0 and int(stats[1]) > 0
 
@@ -271,17 +263,15 @@ def test_k5_deep_tree_matches_plain(cuda):
     d /= np.linalg.norm(d, axis=1, keepdims=True)
     o, d = torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda)
     t_max = torch.where(torch.arange(n, device=cuda) % 3 == 0, -1.0, 1e5)
+    n0 = wide.trace_tiles4.launches
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    got = wide.trace_tiles4(w4, o, d, 0.0, t_max, None, stats)
     ref = traverse_cuda.trace_stream_plain(w4.tris, o, d, 0.0, t_max)
+    torch.cuda.synchronize()
+    assert wide.trace_tiles4.launches == n0 + 1
+    _hold(got[0], got[3], ref[0], ref[3], t_max)
     assert float((ref[3] >= 0).float().mean()) > 0.3
-    for near_first in (True, False):
-        n0 = wide.trace_tiles4.launches
-        stats = torch.zeros(2, dtype=torch.int64, device=cuda)
-        got = wide.trace_tiles4(w4, o, d, 0.0, t_max, None, stats,
-                                near_first=near_first)
-        torch.cuda.synchronize()
-        assert wide.trace_tiles4.launches == n0 + 1
-        _hold(got[0], got[3], ref[0], ref[3], t_max)
-        assert int(stats[0]) > 0 and int(stats[1]) > 0
+    assert int(stats[0]) > 0 and int(stats[1]) > 0
 
 
 def test_per_mesh_wrappers_refuse_bad_inputs(cuda):
