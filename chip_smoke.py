@@ -7,7 +7,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
  0. the machine: nvidia-smi name and power limit, torch/CUDA/nvcc versions;
  1. build the CUDA kernels from csrc/ (one nvcc per source, sm_90a) and
     load them; print ptxas's registers, stack frame and spills of every
-    kernel, and fail if K5 has a stack frame or spills;
+    kernel, and fail if K4 or K5 has a stack frame or spills;
  2. the scene: ground cube + a deterministic ~82k-triangle displaced
     icosphere standing in for the bunny; its instanced scene BVH (the
     renderer's leaf size, 8) for traversal="wide" and its per-mesh trees
@@ -19,12 +19,14 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     16,384 rays drawn from them, and on the 9-instance nested scene; K4 and
     K5 in the model instance's object space on 16,384 rays of the frame
     and on the frame's two full waves (one plain run per wave, compared by
-    triangle id), and through their per-instance loop on the nested
+    triangle id; K4 in both its walks, near-first over child pairs and the
+    TPU's DFS order), and through their per-instance loop on the nested
     scene; K2/K3 on 1280x720 G-buffers, both axes;
  4. the paths at 1280x720, each with every launch count set to 0 just
     before it and read just after: "wide" (3 warm-up, 60 timed frames, then
     10 at metallic 0.5), then "pallas4" and "pallas" (3 warm-up, 20 timed,
-    then 5 at metallic 0.5);
+    then 5 at metallic 0.5); then "wide" at kernels="xla" (K1 launched,
+    the filters' plain passes), and after set_kernels("auto") K2 again;
  5. the golden cube scene at 96x54, 3 frames, against the JAX package's
     frozen PNGs: the default frame on "wide", and bary_mode="ndc" with
     emulate_formats on "pallas4" and "pallas";
@@ -45,6 +47,7 @@ JAX package.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import subprocess
@@ -146,9 +149,11 @@ def build_kernels():
     for name, (regs, frame, st, ld) in reports.items():
         print(f"  ptxas {name}: {regs} registers, {frame} bytes stack "
               f"frame, {st} / {ld} bytes spill stores / loads")
-    k5 = [r for name, r in reports.items() if "trace_wide4_kernel" in name]
-    check(len(k5) == 1 and k5[0][1:] == (0, 0, 0),
-          "K5: no stack frame and no spills")
+    for k, key, n in (("K4", "trace_flat_", 2),
+                      ("K5", "trace_wide4_kernel", 1)):
+        rows = [r for name, r in reports.items() if key in name]
+        check(len(rows) == n and all(r[1:] == (0, 0, 0) for r in rows),
+              f"{k}: no stack frame and no spills")
     return secs
 
 
@@ -279,6 +284,7 @@ def per_mesh_check(name, tree, kernel, o, d, t_min, t_max, inv):
                     t_max)
     stats = torch.zeros(2, dtype=torch.int64, device=o.device)
     kern(stats)
+    # the (N, 9 | 36) node and (T, 9) triangle rows, not the float4 copies
     bound_ms, bound_by = trace_bound((tree.nodes, tree.tris, inv, o, d, t_max),
                                      o.shape[0], 16, stats)
     ms, plain_ms = time_pair(name, kern, plain)
@@ -315,6 +321,8 @@ def per_mesh_wave_check(label, trees, o, d, t_min, t_max, inv):
                         t_max)
         stats = torch.zeros(2, dtype=torch.int64, device=o.device)
         kern(stats)
+        # the bytes the function needs: the (N, 9 | 36) node and (T, 9)
+        # triangle rows (the kernels' float4 copies only pad them)
         bound_ms, bound_by = trace_bound(
             (tree.nodes, tree.tris, inv, o, d, t_max), o.shape[0], 16, stats)
         ms = cuda_ms(kern, 20)
@@ -471,6 +479,43 @@ def drive_path(renderer, label, timed, metal_frames, per_frame,
           f"{label}: launches K1..K5 {delta} = {per_frame_metal} per frame "
           f"at metallic 0.5")
     return dict(ms=ms, ms_metal=ms_metal, rays=rays, launches=total)
+
+
+def kernels_switch_check(scene, dev, card, frames=3):
+    """kernels="xla" swaps only the spatial filters for their plain
+    passes: "wide" frames still launch K1 (2 per frame) and no K2 or K3;
+    set_kernels("auto") brings K2 back from the next frame on."""
+    from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
+
+    r = Renderer(scene, config=RenderConfig(width=W, height=H,
+                                            kernels="xla"), device=dev)
+    state, _, _ = r.step(r.init_state())
+    torch.cuda.synchronize()
+    fns = counters()
+    for fn in fns:
+        fn.launches = 0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(frames):
+        state, frame, _ = r.step(state)
+    end.record()
+    end.synchronize()
+    counts = [fn.launches for fn in fns]
+    print(f"  wide, kernels='xla': {start.elapsed_time(end) / frames:.4f} "
+          f"ms/frame over {frames} frames ({card})")
+    f = frame.float()
+    check(bool(torch.isfinite(f).all()) and float(f.std()) > 1e-3,
+          "kernels='xla': frame finite and not constant")
+    check(counts == [2 * frames, 0, 0, 0, 0], f"kernels='xla': launches "
+          f"K1..K5 {counts} = [2, 0, 0, 0, 0] per frame")
+    r.set_kernels("auto")
+    for fn in fns:
+        fn.launches = 0
+    r.step(state)
+    counts = [fn.launches for fn in fns]
+    check(counts == [2, 2, 0, 0, 0], f"set_kernels('auto'): launches K1..K5 "
+          f"{counts} = [2, 2, 0, 0, 0] in the next frame")
 
 
 # ---------------------------------------------------------------- phase 5
@@ -692,8 +737,9 @@ def main():
     model = scene.mesh_ids.index(1)
     flat = per_mesh["pallas"].geom.flat[1]
     wide = per_mesh["pallas4"].geom.wide[1]
-    print(f"  model mesh at leaf 8: FlatBVH {flat.num_nodes} nodes; "
-          f"WideBVH {wide.num_nodes} supernodes, stack bound {wide.stack}")
+    print(f"  model mesh at leaf 8: FlatBVH {flat.num_nodes} nodes, "
+          f"{flat.pairs.shape[0]} pair rows, depth {flat.stack}; WideBVH "
+          f"{wide.num_nodes} supernodes, stack bound {wide.stack}")
 
     print("== phase 3: kernels against their plain versions")
     rng = np.random.default_rng(1234)
@@ -756,6 +802,8 @@ def main():
     t_m = torch.where(alive, t_f[pick], -1.0).contiguous()
     inv_model = inv_rows(torch.linalg.inv(worlds_f))[model].contiguous()
     per_mesh_trees = {"K4": (flat, trace_tiles_flat),
+                      "K4 dfs": (flat, functools.partial(trace_tiles_flat,
+                                                         design="dfs")),
                       "K5": (wide, trace_tiles4)}
     checks = {k: [per_mesh_check(f"{k} model mesh", tree, kernel, o_m, d_m,
                                  T_MIN_SECONDARY, t_m, inv_model)]
@@ -794,6 +842,7 @@ def main():
     runs["pallas"] = drive_path(per_mesh["pallas"], "pallas",
                                 PER_MESH_TIMED, PER_MESH_METAL,
                                 [0, 2, 0, 4, 0], [0, 2, 2, 6, 0], card)
+    kernels_switch_check(scene, dev, card)
 
     print("== phase 5: golden cube scene")
     golden_check(dev)

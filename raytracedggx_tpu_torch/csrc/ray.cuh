@@ -1,11 +1,10 @@
 // Ray set-up, slab test and Moller-Trumbore test shared by the traversal
 // kernels K1 (traverse.cu), K4 (traverse_flat.cu) and K5
-// (traverse_wide4.cu).  Each function takes its operands as values (K1
-// reads them as float4) or from a row in memory.  The comparisons are
-// those of the TPU kernels, so
-// hits and exact-t ties resolve as there; no fast math, because empty
-// boxes (lo = +inf, hi = -inf), NaN padding and degenerate triangles
-// (det = 0 -> NaN) must fail every comparison.
+// (traverse_wide4.cu).  Each function takes its operands as values, which
+// the kernels read as float4.  The comparisons are those of the TPU
+// kernels, so hits and exact-t ties resolve as there; no fast math,
+// because empty boxes (lo = +inf, hi = -inf), NaN padding and degenerate
+// triangles (det = 0 -> NaN) must fail every comparison.
 
 #pragma once
 
@@ -80,53 +79,48 @@ __device__ __forceinline__ bool box_hit(float lox, float loy, float loz,
   return (tn <= tf) && (tf >= t_min) && (tn <= best_t);
 }
 
-// The same test on the box b = lo.xyz, hi.xyz in memory.
-__device__ __forceinline__ bool box_hit(const float* __restrict__ b,
-                                        const Ray& r, float t_min,
-                                        float best_t, float& tn) {
-  return box_hit(__ldg(b + 0), __ldg(b + 1), __ldg(b + 2), __ldg(b + 3),
-                 __ldg(b + 4), __ldg(b + 5), r, t_min, best_t, tn);
-}
-
-// Moller-Trumbore against the triangle row tr = v0, e1, e2 with an exact
-// 1/det.  On u >= 0, v >= 0, u + v <= 1, t_min <= t <= best_t it takes
-// (t, u, v) into (best_t, best_u, best_v) and returns true, so of two hits
-// at an equal t the later one tested wins.
-__device__ __forceinline__ bool tri_hit(float v0x, float v0y, float v0z,
+// Moller-Trumbore against the triangle v0, e1, e2 with an exact 1/det:
+// (t, u, v), and whether u >= 0, v >= 0, u + v <= 1 and t >= t_min.  The
+// caller compares t with its best.
+__device__ __forceinline__ bool tri_uvt(float v0x, float v0y, float v0z,
                                         float e1x, float e1y, float e1z,
                                         float e2x, float e2y, float e2z,
-                                        const Ray& r, float t_min,
-                                        float& best_t, float& best_u,
-                                        float& best_v) {
+                                        const Ray& r, float t_min, float& t,
+                                        float& u, float& v) {
   const float px = r.dy * e2z - r.dz * e2y;
   const float py = r.dz * e2x - r.dx * e2z;
   const float pz = r.dx * e2y - r.dy * e2x;
   const float det = e1x * px + e1y * py + e1z * pz;
   const float inv_det = 1.0f / det;
   const float tx = r.ox - v0x, ty = r.oy - v0y, tz = r.oz - v0z;
-  const float u = (tx * px + ty * py + tz * pz) * inv_det;
+  u = (tx * px + ty * py + tz * pz) * inv_det;
   const float qx = ty * e1z - tz * e1y;
   const float qy = tz * e1x - tx * e1z;
   const float qz = tx * e1y - ty * e1x;
-  const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
-  const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
-  if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= t_min && t <= best_t) {
+  v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+  t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+  return u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t >= t_min;
+}
+
+// The same test accepted on t <= best_t: it takes (t, u, v) into
+// (best_t, best_u, best_v) and returns true, so of two hits at an equal t
+// the later one tested wins.
+__device__ __forceinline__ bool tri_hit(float v0x, float v0y, float v0z,
+                                        float e1x, float e1y, float e1z,
+                                        float e2x, float e2y, float e2z,
+                                        const Ray& r, float t_min,
+                                        float& best_t, float& best_u,
+                                        float& best_v) {
+  float t, u, v;
+  if (tri_uvt(v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, r, t_min, t, u,
+              v) &&
+      t <= best_t) {
     best_t = t;
     best_u = u;
     best_v = v;
     return true;
   }
   return false;
-}
-
-// The same test on the triangle row tr = v0, e1, e2 in memory.
-__device__ __forceinline__ bool tri_hit(const float* __restrict__ tr,
-                                        const Ray& r, float t_min,
-                                        float& best_t, float& best_u,
-                                        float& best_v) {
-  return tri_hit(__ldg(tr + 0), __ldg(tr + 1), __ldg(tr + 2), __ldg(tr + 3),
-                 __ldg(tr + 4), __ldg(tr + 5), __ldg(tr + 6), __ldg(tr + 7),
-                 __ldg(tr + 8), r, t_min, best_t, best_u, best_v);
 }
 
 }  // namespace rtggx

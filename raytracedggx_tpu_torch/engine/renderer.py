@@ -21,14 +21,18 @@ Per frame (RayTracer::UpdateFrame, RayTracer.cpp:250-305):
 The small per-frame matrices are computed on the CPU and copied to the
 device; everything per pixel runs on ``device``, the CUDA card unless
 the caller passes ``device="cpu"`` (with no CUDA device the constructor
-raises; it never falls back to the CPU).  ``kernels``: "auto" launches
-the CUDA kernels (K1-K5) for CUDA tensors and their plain versions for
-CPU tensors, "cuda" requires a CUDA device, "xla" uses the plain
-versions everywhere.  ``emulate_formats`` round-trips the G-buffers and
+raises; it never falls back to the CPU).  The traversal kernels (K1, K4,
+K5) run for CUDA tensors and their plain versions for CPU tensors,
+whatever ``kernels`` says.  ``kernels`` picks only the spatial filters'
+implementation, as in the reference (its 'V' toggle): "auto" and "cuda"
+run kernels K2 and K3 (for CPU tensors their plain versions; "cuda"
+requires a CUDA device), "xla" the plain torch passes on any device
+(the reference's name for its direct stencils); ``set_kernels`` switches
+it between frames.  ``emulate_formats`` round-trips the G-buffers and
 the denoiser's targets through the reference's storage formats.  Not
-ported yet: the reference's ``async_compute``, ``set_kernels``, the
-``cam`` override of ``step``, the sharded ``valid`` mask, and ``step_n``
-as one captured program (here a Python loop).  The reference's
+ported yet: the reference's ``async_compute``, the ``cam`` override of
+``step``, the sharded ``valid`` mask, and ``step_n`` as one captured
+program (here a Python loop).  The reference's
 VMEM-budget fallback from "wide" to per-mesh launches is a TPU residency
 limit and is dropped.
 """
@@ -73,7 +77,8 @@ class RenderConfig:
     spatial: bool = True            # spatial filters on/off
     temporal: bool = True           # TAA accumulate on/off
     emulate_formats: bool = False   # round-trip reference storage precision
-    kernels: str = "auto"           # "auto" | "xla" | "cuda"
+    kernels: str = "auto"           # spatial filters: "auto" | "cuda"
+                                    # (K2, K3) | "xla" (plain passes)
     traversal: str = "auto"         # "auto" (= "wide", K1) | "wide" |
                                     # "pallas4" (K5) | "pallas" (K4) | "jax"
     leaf_size: int = 8              # per-mesh tree leaf size (K4, K5)
@@ -107,11 +112,8 @@ class Renderer:
         self.traversal = "wide" if cfg.traversal == "auto" else cfg.traversal
         if self.traversal not in ("wide", "pallas4", "pallas", "jax"):
             raise ValueError(f"traversal={cfg.traversal!r}")
-        if cfg.kernels not in ("auto", "xla", "cuda"):
-            raise ValueError(f"kernels={cfg.kernels!r}")
-        if cfg.kernels == "cuda" and dev.type != "cuda":
-            raise ValueError("kernels='cuda' needs a CUDA device")
-        self.impl = "xla" if cfg.kernels == "xla" else "cuda"
+        self.kernels = self.impl = None
+        self.set_kernels(cfg.kernels)
         self.scene = scene
         self.camera = camera or Camera(width=cfg.width, height=cfg.height)
         self.camera.width, self.camera.height = cfg.width, cfg.height
@@ -247,24 +249,21 @@ class Renderer:
         BVH) or trace_fn (per-mesh, in each instance's object space)."""
         if self.traversal == "wide":
             sw = refit_scene_wide(self.swide, consts.worlds)
-            hook, impl = self.trace_hook, self.impl
+            hook = self.trace_hook
 
             def trace(o, d, t_min, t_max):
                 if hook is not None:
                     hook(sw, o, d, t_min, t_max)
-                return trace_scene_wide_fused(sw, o, d, t_min, t_max,
-                                              impl=impl)
+                return trace_scene_wide_fused(sw, o, d, t_min, t_max)
             return dict(trace_fused=trace)
         if self.traversal == "jax":
             return dict(trace_fn=default_tracer(self.geom))
-        geom, impl = self.geom, self.impl
+        geom = self.geom
         if self.traversal == "pallas":
             return dict(trace_fn=lambda tlas, o, d, t_min, t_max:
-                        trace_scene_flat(geom.flat, tlas, o, d, t_min, t_max,
-                                         impl=impl))
+                        trace_scene_flat(geom.flat, tlas, o, d, t_min, t_max))
         return dict(trace_fn=lambda tlas, o, d, t_min, t_max:
-                    trace_scene4(geom.wide, tlas, o, d, t_min, t_max,
-                                 impl=impl))
+                    trace_scene4(geom.wide, tlas, o, d, t_min, t_max))
 
     def step_n(self, state: RenderState, num_frames: int,
                dt: float = 1 / 60):
@@ -273,6 +272,21 @@ class Renderer:
         for _ in range(num_frames):
             state, frame, _ = self.step(state, dt)
         return state, frame
+
+    def set_kernels(self, kernels: str):
+        """The reference's 'V' hotkey (RayTracedGGX.cpp:391-393): switch
+        the spatial filters between kernels K2 / K3 ("auto", "cuda") and
+        the plain torch passes ("xla") from the next frame on; a no-op
+        when unchanged.  The port runs eagerly, so there is no compiled
+        frame to drop.  The traversal is not touched."""
+        if kernels == self.kernels:
+            return
+        if kernels not in ("auto", "xla", "cuda"):
+            raise ValueError(f"kernels={kernels!r}")
+        if kernels == "cuda" and self.device.type != "cuda":
+            raise ValueError("kernels='cuda' needs a CUDA device")
+        self.kernels = kernels
+        self.impl = "xla" if kernels == "xla" else "cuda"
 
     def set_metallic(self, mesh_idx: int, metallic: float):
         """RayTracer::SetMetallic (RayTracer.cpp:243-247): every instance

@@ -45,10 +45,14 @@ SIGNATURES = {
                               _F, _P),
     # K3: axis src normal metal depth out H W stream
     "rtggx_diffuse_pass": (_I, _P, _P, _P, _P, _P, _I, _I, _P),
-    # K4: nodes num_nodes tris inv ray_o ray_d t_max t_min n_rays
+    # K4: pairs tris4 inv ray_o ray_d t_max t_min n_rays stack
     # out_t out_u out_v out_pos stats stream
-    "rtggx_trace_flat": (_P, _I, _P, _P, _P, _P, _P, _F, _I,
+    "rtggx_trace_flat": (_P, _P, _P, _P, _P, _P, _F, _I, _I,
                          _P, _P, _P, _P, _P, _P),
+    # K4 in DFS order: nodes4 num_nodes tris4 inv ray_o ray_d t_max t_min
+    # n_rays out_t out_u out_v out_pos stats stream
+    "rtggx_trace_flat_dfs": (_P, _I, _P, _P, _P, _P, _P, _F, _I,
+                             _P, _P, _P, _P, _P, _P),
     # K5: nodes tris4 inv ray_o ray_d t_max t_min n_rays stack
     # out_t out_u out_v out_pos stats stream
     "rtggx_trace_wide4": (_P, _P, _P, _P, _P, _P, _F, _I, _I,
@@ -64,6 +68,7 @@ SIGNATURES = {
     "rtggx_trace_mxu": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P),
     "rtggx_k1_max_stack": (),
+    "rtggx_k4_max_stack": (),
     "rtggx_k5_max_stack": (),
     "rtggx_lab_max_stack": (),
     "rtggx_lab_smem_rows": (),

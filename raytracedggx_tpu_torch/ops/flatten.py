@@ -17,6 +17,14 @@ triangle columns become (N, 9) and (T, 9) rows with no padding:
 ``tri_perm`` maps stream position -> original triangle id.
 ``from_reference_arrays`` converts the reference's arrays, so both sides
 can trace one tree.
+
+Beside them each tree keeps the copies kernel K4 reads as float4, built
+from those rows by ``flatten_bvh``, ``from_reference_arrays`` and
+``refit_flat_bvh`` alike: ``nodes4`` and ``tris4`` (each row's vectors
+padded by a 0), ``pairs`` (``pair_rows``: both children of an internal
+node in one 64-byte row) and ``stack``, the tree's depth, by which the
+kernel's stack is sized.  The plain version and the kernel's bound keep
+the (N, 9) / (T, 9) rows.
 """
 
 from __future__ import annotations
@@ -39,6 +47,11 @@ class FlatBVH(NamedTuple):
     refit_a: torch.Tensor      # (N,) int64
     refit_b: torch.Tensor      # (N,) int64
     links: torch.Tensor        # (N, 3) f32 static skip / start / count
+    # K4's float4 copies of the rows above (ops/traverse_cuda.py)
+    nodes4: torch.Tensor       # (N, 12) f32: lo _ hi _ skip start count _
+    pairs: torch.Tensor        # (P, 16) f32 child-pair rows (pair_rows)
+    tris4: torch.Tensor        # (T, 12) f32: v0 _ e1 _ e2 _
+    stack: int                 # nodes on the longest root-to-leaf path
 
 
 def subtree_counts(left, right, n):
@@ -78,12 +91,58 @@ def stream_rows(tri_v0, tri_e1, tri_e2, perm):
     return torch.cat([tri_v0[idx], tri_e1[idx], tri_e2[idx]], dim=1)
 
 
-def float4_rows(tris):
-    """(T, 9) rows v0 e1 e2 -> (T, 12): each vector padded to a float4
-    with a 0, so K1 and K5 read a triangle as three 16-byte loads.  Pad
-    slots keep v0 = NaN."""
-    t = tris.reshape(-1, 3, 3)
+def float4_rows(rows):
+    """(M, 9) rows of three 3-vectors (a triangle's v0 e1 e2, a node's lo
+    hi links) -> (M, 12): each vector padded to a float4 with a 0, so the
+    kernels read a row as three 16-byte loads.  Pad slots keep v0 = NaN."""
+    t = rows.reshape(-1, 3, 3)
     return torch.cat([t, torch.zeros_like(t[..., :1])], dim=2).reshape(-1, 12)
+
+
+def pair_rows(nodes):
+    """(N, 9) DFS rows -> (P, 16) child-pair rows, P = 1 + the internal
+    nodes.  Internal node i's children are node i + 1 and node
+    skip(i + 1); the k-th internal node in DFS order gets row 1 + k, and
+    row 0 holds the root as its first child beside an empty slot (a NaN
+    box, which fails every slab test, and count -1).  Columns:
+      0..5    first child's lo.xyz, hi.xyz;  6..11  the second's
+      12, 13  first child: its pair row and 0 (internal), or tri_start and
+              tri_count (leaf);  14, 15  the same for the second child."""
+    f32 = torch.float32
+    skip, start, count = nodes[:, 6].long(), nodes[:, 7], nodes[:, 8]
+    internal = count == 0
+    row_of = torch.cumsum(internal.long(), 0).to(f32)  # 1 + DFS rank
+    left = torch.nonzero(internal).flatten() + 1
+
+    def slot(c):
+        leaf = count[c] > 0
+        return nodes[c, 0:6], torch.stack(
+            [torch.where(leaf, start[c], row_of[c]), count[c]], dim=1)
+
+    box0, meta0 = slot(torch.cat([left.new_zeros(1), left]))
+    box1, meta1 = slot(skip[left])
+    box1 = torch.cat([box1.new_full((1, 6), float("nan")), box1])
+    meta1 = torch.cat([meta1.new_tensor([[0.0, -1.0]]), meta1])
+    return torch.cat([box0, box1, meta0, meta1], dim=1).contiguous()
+
+
+def tree_depth(nodes) -> int:
+    """Nodes on the longest root-to-leaf path of (N, 9) DFS rows (host
+    side): node i's ancestors are the internal nodes j < i < skip(j)."""
+    rows = np.asarray(nodes)
+    skip, count = rows[:, 6].astype(np.int64), rows[:, 8]
+    inner = np.nonzero(count == 0)[0]
+    ancestors = np.zeros(rows.shape[0] + 1, np.int64)
+    np.add.at(ancestors, inner + 1, 1)
+    np.add.at(ancestors, skip[inner], -1)
+    return int(np.cumsum(ancestors[:-1]).max()) + 1
+
+
+def k4_rows(nodes, tris):
+    """K4's float4 copies of the (N, 9) / (T, 9) rows: nodes4, pairs,
+    tris4 (the FlatBVH fields of those names)."""
+    return dict(nodes4=float4_rows(nodes), pairs=pair_rows(nodes),
+                tris4=float4_rows(tris))
 
 
 def flatten_bvh(bvh, tri_v0, tri_e1, tri_e2, leaf_size: int = 4) -> FlatBVH:
@@ -134,18 +193,20 @@ def flatten_bvh(bvh, tri_v0, tri_e1, tri_e2, leaf_size: int = 4) -> FlatBVH:
     def t(x, dtype=torch.int64):
         return torch.as_tensor(x, dtype=dtype, device=dev)
 
-    return FlatBVH(nodes=t(node_arr, torch.float32),
-                   tris=stream_rows(tri_v0, tri_e1, tri_e2, tri_stream),
-                   tri_perm=t(tri_stream), num_nodes=N,
-                   refit_level=t(level), refit_a=t(rng[:, 0]),
+    nodes = t(node_arr, torch.float32)
+    tris = stream_rows(tri_v0, tri_e1, tri_e2, tri_stream)
+    return FlatBVH(nodes=nodes, tris=tris, tri_perm=t(tri_stream),
+                   num_nodes=N, refit_level=t(level), refit_a=t(rng[:, 0]),
                    refit_b=t(rng[:, 1] - (1 << level)),
-                   links=t(node_arr[:, 6:9], torch.float32))
+                   links=t(node_arr[:, 6:9], torch.float32),
+                   **k4_rows(nodes, tris), stack=tree_depth(node_arr))
 
 
 def refit_flat_bvh(flat: FlatBVH, positions, indices) -> FlatBVH:
     """Refit for deformed vertices, topology unchanged: per-triangle boxes
     in stream order, a log2(T) sparse min/max table, two windows per
-    node, then the node and triangle rows again."""
+    node, then the node and triangle rows and K4's copies of them again
+    (the depth stays)."""
     pos = torch.as_tensor(positions, dtype=torch.float32,
                           device=flat.nodes.device)
     tri = torch.as_tensor(np.asarray(indices, np.int64),
@@ -175,7 +236,7 @@ def refit_flat_bvh(flat: FlatBVH, positions, indices) -> FlatBVH:
                          hi)
     nodes = torch.cat([lo, hi, flat.links], dim=1)
     tris = torch.cat([v[:, 0], v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]], dim=1)
-    return flat._replace(nodes=nodes, tris=tris)
+    return flat._replace(nodes=nodes, tris=tris, **k4_rows(nodes, tris))
 
 
 def lane_rows(tiles, count, width):
@@ -194,8 +255,9 @@ def from_reference_arrays(nodes, tris, tri_perm, num_nodes, refit_level,
     def t(x, dtype=torch.int64):
         return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
-    return FlatBVH(nodes=t(rows, torch.float32),
-                   tris=t(lane_rows(tris, T, 9), torch.float32),
-                   tri_perm=t(tri_perm), num_nodes=N,
+    nodes = t(rows, torch.float32)
+    tris = t(lane_rows(tris, T, 9), torch.float32)
+    return FlatBVH(nodes=nodes, tris=tris, tri_perm=t(tri_perm), num_nodes=N,
                    refit_level=t(refit_level), refit_a=t(refit_a),
-                   refit_b=t(refit_b), links=t(rows[:, 6:9], torch.float32))
+                   refit_b=t(refit_b), links=t(rows[:, 6:9], torch.float32),
+                   **k4_rows(nodes, tris), stack=tree_depth(rows))

@@ -26,8 +26,7 @@ from ..bvh.lbvh import build_lbvh
 from ..bvh.sah import build_sah
 from ..trace.traverse import HitRecord
 from .flatten import float4_rows
-from .fused import (build_records4_padded, trace_instanced_plain,
-                    trace_tiles_instanced)
+from .fused import build_records4_padded, trace_tiles_instanced
 
 TAG_SHIFT = 20                      # stack entry = node | (tag << 20)
 MAX_NODES = 1 << TAG_SHIFT
@@ -301,21 +300,15 @@ def refit_scene_wide(sw: SceneWideBVH, worlds) -> SceneWideBVH:
     return sw._replace(nodes=nodes, inv_mats=inv_mats)
 
 
-def trace_scene_wide_fused(sw: SceneWideBVH, ray_o, ray_d, t_min, t_max,
-                           impl: str = "cuda"):
+def trace_scene_wide_fused(sw: SceneWideBVH, ray_o, ray_d, t_min, t_max):
     """Closest hit for WORLD-space rays across all instances in one K1
-    launch.  Returns (HitRecord, normal): normal is the unnormalised
-    OBJECT-space interpolated vertex normal (zero where missed), resolved
-    with one gather from the static attrs table.  impl="cuda" goes through
-    the K1 wrapper, impl="xla" takes K1's plain version on any device."""
-    if impl == "xla":
-        t, u, v, slot, inst = trace_instanced_plain(
-            sw.tris, sw.inv_mats, sw.inst_slots, ray_o, ray_d, t_min, t_max)
-    else:
-        t, u, v, slot, inst = trace_tiles_instanced(
-            sw.nodes, sw.tris4, sw.inv_mats, sw.inst_slots,
-            ray_o.contiguous(), ray_d.contiguous(), t_min, t_max,
-            sw.leaf_size, sw.k1_stack)
+    launch (its plain version for CPU tensors).  Returns (HitRecord,
+    normal): normal is the unnormalised OBJECT-space interpolated vertex
+    normal (zero where missed), resolved with one gather from the static
+    attrs table."""
+    t, u, v, slot, inst = trace_tiles_instanced(
+        sw.nodes, sw.tris4, sw.inv_mats, sw.inst_slots, ray_o.contiguous(),
+        ray_d.contiguous(), t_min, t_max, sw.leaf_size, sw.k1_stack)
     hit = slot >= 0
     att = sw.attrs[torch.clamp(slot.to(torch.int64), 0,
                                sw.attrs.shape[0] - 1)]

@@ -4,7 +4,8 @@ Torch/CUDA port of raytracedggx_tpu/ops/traverse_pallas.py:200-263
 (``trace_rays_pallas``) and :399-437 (``trace_scene_pallas``), the
 ``traversal="pallas"`` backend.  The TPU kernel ``_traverse_kernel``
 becomes the CUDA kernel in ``csrc/traverse_flat.cu``, launched by
-``trace_tiles_flat`` with one ray per thread.  Its plain version is
+``trace_tiles_flat`` with one ray per thread over the tree's float4
+copies (``FlatBVH.pairs`` / ``nodes4`` and ``tris4``).  Its plain version is
 ``trace_stream_plain``: the brute-force oracle ``trace_bruteforce`` over
 the stream-ordered triangles, independent of the tree.
 
@@ -51,14 +52,18 @@ def trace_stream_plain(tris, ray_o, ray_d, t_min, t_max, inv=None):
     return rec.t, rec.u, rec.v, rec.prim.to(torch.int32)
 
 
-def launch_outputs(tree, width, ray_o, ray_d, inv, stats):
-    """Check the inputs of a K4 or K5 launch (contiguous, on the rays'
-    device, ``tree.nodes`` (num_nodes, width)) and allocate its outputs
-    (t, u, v, stream position)."""
+def launch_outputs(ray_o, ray_d, inv, stats, rows):
+    """Check the inputs of a K4 or K5 launch and allocate its outputs (t,
+    u, v, stream position).  rows: {name: (tensor, shape)}, the tree's
+    rows that the kernel reads as float4: contiguous float32 on the rays'
+    device, 16-byte aligned."""
     dev, f32 = ray_o.device, torch.float32
     R = ray_o.shape[0]
-    require("nodes", tree.nodes, (tree.num_nodes, width), f32, dev)
-    require("tris", tree.tris, (None, 9), f32, dev)
+    for name, (t, shape) in rows.items():
+        require(name, t, shape, f32, dev)
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads float4 rows, need "
+                             f"a 16-byte aligned tensor")
     require("ray_o", ray_o, (R, 3), f32, dev)
     require("ray_d", ray_d, (R, 3), f32, dev)
     if inv is not None:
@@ -69,24 +74,49 @@ def launch_outputs(tree, width, ray_o, ray_d, inv, stats):
                  for dt in (f32, f32, f32, torch.int32))
 
 
+def check_stack(kernel, need, cap):
+    """Raise unless a tree's stack bound fits the kernel's compiled one."""
+    if not 1 <= need <= cap:
+        raise ValueError(f"the tree needs a stack of {need}; {kernel} "
+                         f"holds {cap}")
+
+
 def trace_tiles_flat(flat: FlatBVH, ray_o, ray_d, t_min, t_max, inv=None,
-                     stats=None):
+                     stats=None, design="pairs"):
     """K4 wrapper: closest hit of (R, 3) rays against one FlatBVH, in the
     object space of ``inv`` ((12,) inverse-world row; None: the rays are
-    in object space already).  CUDA tensors launch the kernel (or raise);
-    CPU tensors take ``trace_stream_plain``.  Returns (t, u, v, stream
-    position int32).  stats: optional (2,) int64 tensor the kernel adds
-    its node and triangle tests to."""
+    in object space already).  CUDA tensors launch the kernel (or raise:
+    a tree deeper than the kernel's compiled stack, or rows that are not
+    16-byte aligned); CPU tensors take ``trace_stream_plain``.  Returns
+    (t, u, v, stream position int32).  stats: optional (2,) int64 tensor
+    the kernel adds its box and triangle tests to.  design: "pairs"
+    (near-first over ``flat.pairs``) or "dfs" (the TPU's order over
+    ``flat.nodes4``)."""
     t_max = per_ray(t_max, ray_o)
     if ray_o.device.type == "cpu":
         return trace_stream_plain(flat.tris, ray_o, ray_d, t_min, t_max,
                                   inv)
-    out = launch_outputs(flat, 9, ray_o, ray_d, inv, stats)
-    err = load_library().rtggx_trace_flat(
-        flat.nodes.data_ptr(), int(flat.num_nodes), flat.tris.data_ptr(),
-        pointer(inv), ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(),
-        float(t_min), ray_o.shape[0], *(x.data_ptr() for x in out),
-        pointer(stats), stream_handle(ray_o.device))
+    tris4 = (flat.tris4, (flat.tris.shape[0], 12))
+    lib = load_library()
+    if design == "dfs":
+        out = launch_outputs(ray_o, ray_d, inv, stats, {
+            "nodes4": (flat.nodes4, (flat.num_nodes, 12)), "tris4": tris4})
+        err = lib.rtggx_trace_flat_dfs(
+            flat.nodes4.data_ptr(), int(flat.num_nodes),
+            flat.tris4.data_ptr(), pointer(inv), ray_o.data_ptr(),
+            ray_d.data_ptr(), t_max.data_ptr(), float(t_min),
+            ray_o.shape[0], *(x.data_ptr() for x in out), pointer(stats),
+            stream_handle(ray_o.device))
+    else:
+        out = launch_outputs(ray_o, ray_d, inv, stats, {
+            "pairs": (flat.pairs, (None, 16)), "tris4": tris4})
+        check_stack("K4", flat.stack, lib.rtggx_k4_max_stack())
+        err = lib.rtggx_trace_flat(
+            flat.pairs.data_ptr(), flat.tris4.data_ptr(), pointer(inv),
+            ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(),
+            float(t_min), ray_o.shape[0], int(flat.stack),
+            *(x.data_ptr() for x in out), pointer(stats),
+            stream_handle(ray_o.device))
     check_launch(err, "K4 trace_tiles_flat")
     trace_tiles_flat.launches += 1
     return out

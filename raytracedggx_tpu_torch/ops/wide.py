@@ -33,12 +33,12 @@ import numpy as np
 import torch
 
 from ..trace.traverse import HitRecord
-from .cuda_lib import (check_launch, load_library, pointer, require,
-                       stream_handle)
+from .cuda_lib import check_launch, load_library, pointer, stream_handle
 from .flatten import (float4_rows, host_arrays, lane_rows, stream_rows,
                       subtree_counts, subtree_leaves)
-from .traverse_cuda import (launch_outputs, per_ray, trace_rays_tree,
-                            trace_scene_trees, trace_stream_plain)
+from .traverse_cuda import (check_stack, launch_outputs, per_ray,
+                            trace_rays_tree, trace_scene_trees,
+                            trace_stream_plain)
 
 
 class WideBVH(NamedTuple):
@@ -177,17 +177,11 @@ def trace_tiles4(wide: WideBVH, ray_o, ray_d, t_min, t_max, inv=None,
     if ray_o.device.type == "cpu":
         return trace_stream_plain(wide.tris, ray_o, ray_d, t_min, t_max,
                                   inv)
-    out = launch_outputs(wide, 36, ray_o, ray_d, inv, stats)
-    require("tris4", wide.tris4, (wide.tris.shape[0], 12), torch.float32,
-            ray_o.device)
-    for name, t in (("nodes", wide.nodes), ("tris4", wide.tris4)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: K5 reads float4 rows, need a "
-                             f"16-byte aligned tensor")
+    out = launch_outputs(ray_o, ray_d, inv, stats, {
+        "nodes": (wide.nodes, (wide.num_nodes, 36)),
+        "tris4": (wide.tris4, (wide.tris.shape[0], 12))})
     lib = load_library()
-    if not 1 <= wide.stack <= lib.rtggx_k5_max_stack():
-        raise ValueError(f"the tree needs a stack of {wide.stack}; K5 "
-                         f"holds {lib.rtggx_k5_max_stack()}")
+    check_stack("K5", wide.stack, lib.rtggx_k5_max_stack())
     err = lib.rtggx_trace_wide4(
         wide.nodes.data_ptr(), wide.tris4.data_ptr(), pointer(inv),
         ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(), float(t_min),

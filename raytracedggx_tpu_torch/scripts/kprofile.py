@@ -1,5 +1,5 @@
-"""Device-time profile of the "wide" and "pallas4" frames and of their
-kernels K1, K2, K3 and K5.
+"""Device-time profile of the "wide", "pallas4" and "pallas" frames and
+of their kernels K1, K2, K3, K5 and K4.
 
     python -m raytracedggx_tpu_torch.scripts.kprofile [frames]
 
@@ -23,17 +23,19 @@ activities), it prints:
   order, then the sorted reflection wave), and K2's and K3's on each axis
   over the metallic-0.5 frame's G-buffers: the median of the kernel's own
   device time over ``frames`` launches;
-* the ``traversal="pallas4"`` path: ms per frame (20 frames after 3
-  warm-up), its profile as above (device busy, idle share, K5's share),
-  K5's mean device ms per launch over the profiled frames, and K5's device
-  ms per launch on the "wide" frame's two waves in the model instance's
-  object space (``trace_tiles4`` with the inverse world, as
-  ``trace_scene4`` launches it);
+* the ``traversal="pallas4"`` path, then ``"pallas"``: ms per frame (20
+  frames after 3 warm-up), its profile as above (device busy, idle share,
+  the per-mesh kernel's share), that kernel's (K5's, K4's) mean device
+  ms per launch over the profiled frames, and its median device ms per
+  launch on the "wide" frame's two waves in the model instance's object
+  space (``trace_tiles4`` / ``trace_tiles_flat`` with the inverse world,
+  as ``trace_scene4`` / ``trace_scene_flat`` launch it);
 * a last line with all of it as JSON, with the card's name and power limit.
 
 It reads only public entry points (``Renderer`` and its ``trace_hook`` and
 ``geom``, ``trace_scene_wide_fused``, ``trace_tiles4``,
-``reflection_pass``, ``diffuse_pass``) and the kernels' names (each
+``trace_tiles_flat``, ``reflection_pass``, ``diffuse_pass``) and the
+kernels' names (each
 kernel's name in this tree and the one it had before), so one file
 measures any tree of the port whose ``Renderer`` has ``trace_hook``.
 Needs a CUDA device.
@@ -52,12 +54,16 @@ import time
 import torch
 
 W, H = 1280, 720
-TIMED, TIMED_METAL, TIMED_PALLAS4 = 60, 10, 20
-# device kernel names, this tree's and the one each had before
+TIMED, TIMED_METAL, TIMED_PER_MESH = 60, 10, 20
+# device kernel names, this tree's and the ones each had before
 KERNELS = {"K1": ("trace_instanced_kernel",),
            "K2": ("reflection_pass_kernel", "spatial_pass_kernel<true"),
            "K3": ("diffuse_pass_kernel", "spatial_pass_kernel<false"),
-           "K5": ("trace_wide4_kernel",)}
+           "K5": ("trace_wide4_kernel",),
+           "K4": ("trace_flat_pairs_kernel", "trace_flat_dfs_kernel",
+                  "trace_flat_kernel")}
+# the per-mesh paths: traversal -> (kernel, its Renderer.geom field)
+PER_MESH = {"pallas4": ("K5", "wide"), "pallas": ("K4", "flat")}
 
 
 def named(name, keys) -> bool:
@@ -148,10 +154,11 @@ def frame_profile(renderer, state, n, label):
     res = dict(wall_ms=wall / n, busy_ms=busy / n, idle=1.0 - busy / wall,
                ops=len(ev) / n, share=share,
                top={name[:90]: ms / n for name, ms in top})
-    k5 = [b - a for name, a, b in ev if named(name, KERNELS["K5"])]
-    if k5:    # all of the frame's K5 launches, the model's and the ground's
-        res["K5_ms_per_launch"] = sum(k5) / len(k5) / 1e3
-        res["K5_launches"] = len(k5)
+    for k in ("K4", "K5"):  # all of a per-mesh frame's launches of it
+        dt = [b - a for name, a, b in ev if named(name, KERNELS[k])]
+        if dt:
+            res[f"{k}_ms_per_launch"] = sum(dt) / len(dt) / 1e3
+            res[f"{k}_launches"] = len(dt)
     print(f"{label}: wall {res['wall_ms']:.4f} ms/frame (profiler on), "
           f"device busy {res['busy_ms']:.4f} ms/frame, idle share "
           f"{res['idle']:.4f}, {res['ops']:.1f} device ops/frame; share of "
@@ -207,35 +214,40 @@ def frame_waves(renderer):
     return box["sw"], worlds, waves
 
 
-def pallas4_profile(scene, waves, worlds, n, out):
-    """The "pallas4" path: frame ms, its profile, and K5 per launch on the
-    "wide" frame's waves in the model instance's object space."""
+def per_mesh_profile(scene, waves, worlds, n, out, traversal):
+    """A per-mesh path ("pallas4" or "pallas"): frame ms, its profile, and
+    its kernel (K5 or K4) per launch on the "wide" frame's waves in the
+    model instance's object space."""
     from ..engine import RenderConfig, Renderer
-    from ..ops.traverse_cuda import inv_rows
+    from ..ops.traverse_cuda import inv_rows, trace_tiles_flat
     from ..ops.wide import trace_tiles4
 
-    r4 = Renderer(scene, config=RenderConfig(traversal="pallas4"),
-                  device="cuda")
-    state = r4.init_state()
+    k, field = PER_MESH[traversal]
+    wrapper = {"K4": trace_tiles_flat, "K5": trace_tiles4}[k]
+    r = Renderer(scene, config=RenderConfig(traversal=traversal),
+                 device="cuda")
+    state = r.init_state()
     for _ in range(3):
-        state, _, _ = r4.step(state)
-    state, out["pallas4_frame_ms"] = frames_ms(r4, state, TIMED_PALLAS4)
-    print(f"pallas4 frame: {out['pallas4_frame_ms']:.4f} ms over "
-          f"{TIMED_PALLAS4} frames", flush=True)
-    state, _, prof = frame_profile(r4, state, n, "pallas4 frame")
-    out["pallas4_frame"] = prof
-    print(f"K5 in the pallas4 frame: {prof['K5_ms_per_launch']:.4f} ms per "
-          f"launch (mean) over {prof['K5_launches']} launches", flush=True)
+        state, _, _ = r.step(state)
+    state, ms = frames_ms(r, state, TIMED_PER_MESH)
+    out[f"{traversal}_frame_ms"] = ms
+    print(f"{traversal} frame: {ms:.4f} ms over {TIMED_PER_MESH} frames",
+          flush=True)
+    state, _, prof = frame_profile(r, state, n, f"{traversal} frame")
+    out[f"{traversal}_frame"] = prof
+    print(f"{k} in the {traversal} frame: {prof[f'{k}_ms_per_launch']:.4f} "
+          f"ms per launch (mean) over {prof[f'{k}_launches']} launches",
+          flush=True)
     model = scene.mesh_ids.index(1)        # the instance of mesh 1
-    wide = r4.geom.wide[1]
+    tree = getattr(r.geom, field)[1]
     inv = inv_rows(torch.linalg.inv(worlds))[model].contiguous()
     for label, (o, d, t_min, t_max) in zip(("primary", "reflection"), waves):
-        ms, cnt = kernel_ms(lambda: trace_tiles4(wide, o, d, t_min, t_max,
-                                                 inv), KERNELS["K5"], n)
-        out[f"K5_{label}_ms"] = ms
-        print(f"K5 {label} wave ({o.shape[0]} rays, model instance, "
-              f"{wide.num_nodes} supernodes): {ms:.4f} ms per launch over "
-              f"{cnt} launches", flush=True)
+        ms, cnt = kernel_ms(lambda: wrapper(tree, o, d, t_min, t_max, inv),
+                            KERNELS[k], n)
+        out[f"{k}_{label}_ms"] = ms
+        print(f"{k} {label} wave ({o.shape[0]} rays, model instance, "
+              f"{tree.num_nodes} nodes): {ms:.4f} ms per launch over {cnt} "
+              f"launches", flush=True)
 
 
 def main(argv=None) -> int:
@@ -295,7 +307,8 @@ def main(argv=None) -> int:
             out[f"{k}_axis{axis}_ms"] = ms
             print(f"{k} axis {axis}: {ms:.4f} ms per pass over {cnt} "
                   f"launches", flush=True)
-    pallas4_profile(scene, waves, worlds, n, out)
+    for traversal in PER_MESH:
+        per_mesh_profile(scene, waves, worlds, n, out, traversal)
     print(json.dumps(out))
     return 0
 

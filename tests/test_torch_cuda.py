@@ -274,9 +274,80 @@ def test_k5_deep_tree_matches_plain(cuda):
     assert int(stats[0]) > 0 and int(stats[1]) > 0
 
 
+@pytest.mark.parametrize("design", ["pairs", "dfs"])
+@pytest.mark.parametrize("leaf_size", [1, 8])
+def test_k4_ties_go_to_the_later_stream_position(cuda, leaf_size, design):
+    """Every triangle twice: the two copies tie at exactly the same t, and
+    K4 returns the later stream position of the pair on every hit, as the
+    TPU kernel's DFS walk with t <= best_t does (and the plain version,
+    which keeps the last of equal t)."""
+    rng = np.random.default_rng(17)
+    n = 1500
+    base = (rng.random((n, 1, 3)) - 0.5) * 8
+    tri = (base + (rng.random((n, 3, 3)) - 0.5)).astype(np.float32)
+    tri = np.concatenate([tri, tri])
+    pos = torch.as_tensor(tri.reshape(-1, 3), device=cuda)
+    t3 = pos.reshape(-1, 3, 3)
+    flat = flatten.flatten_bvh(
+        build_lbvh(pos, torch.arange(pos.shape[0], device=cuda)), t3[:, 0],
+        t3[:, 1] - t3[:, 0], t3[:, 2] - t3[:, 0], leaf_size=leaf_size)
+    where = torch.argsort(flat.tri_perm)        # triangle id -> position
+    later = torch.maximum(where[flat.tri_perm % n],
+                          where[flat.tri_perm % n + n])
+    cents = torch.as_tensor(tri[:n].mean(axis=1), device=cuda)
+    R = 4096
+    o = torch.as_tensor(rng.uniform(-8.0, 8.0, size=(R, 3)).astype(np.float32),
+                        device=cuda)
+    d = cents[torch.as_tensor(rng.integers(0, n, R), device=cuda)] - o
+    d = (d / d.norm(dim=1, keepdim=True)).contiguous()
+    t_max = torch.where(torch.arange(R, device=cuda) % 5 == 0, -1.0, 1e4)
+    got = traverse_cuda.trace_tiles_flat(flat, o, d, 1e-4, t_max,
+                                         design=design)
+    ref = traverse_cuda.trace_stream_plain(flat.tris, o, d, 1e-4, t_max)
+    torch.cuda.synchronize()
+    _hold(got[0], got[3], ref[0], ref[3], t_max)
+    hit = got[3] >= 0
+    assert float(hit.float().mean()) > 0.5
+    pos_hit = got[3][hit].long()
+    assert torch.equal(pos_hit, later[pos_hit])
+
+
+def test_k4_deep_tree_matches_plain(cuda):
+    """A tree of depth between 29 and 64 (the model's is 20 at leaf 8), so
+    K4's shared-memory stack is sized above what the model needs; rays
+    aimed at the triangles walk its deepest paths."""
+    pos, cents = _comb_mesh()
+    pos = torch.as_tensor(pos, device=cuda)
+    tri = pos.reshape(-1, 3, 3)
+    v0, e1, e2 = tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
+    flat = flatten.flatten_bvh(build_lbvh(pos, torch.arange(pos.shape[0],
+                                                            device=cuda)),
+                               v0, e1, e2, leaf_size=1)
+    assert 29 < flat.stack <= 64
+    rng = np.random.default_rng(19)
+    n = 4096
+    o = rng.uniform(-50.0, 1100.0, size=(n, 3)).astype(np.float32)
+    aim = cents[rng.integers(0, len(cents), n)] + rng.normal(
+        0.0, 0.05, size=(n, 3)).astype(np.float32)
+    d = aim - o
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o, d = torch.as_tensor(o, device=cuda), torch.as_tensor(d, device=cuda)
+    t_max = torch.where(torch.arange(n, device=cuda) % 3 == 0, -1.0, 1e5)
+    n0 = traverse_cuda.trace_tiles_flat.launches
+    stats = torch.zeros(2, dtype=torch.int64, device=cuda)
+    got = traverse_cuda.trace_tiles_flat(flat, o, d, 0.0, t_max, None, stats)
+    ref = traverse_cuda.trace_stream_plain(flat.tris, o, d, 0.0, t_max)
+    torch.cuda.synchronize()
+    assert traverse_cuda.trace_tiles_flat.launches == n0 + 1
+    _hold(got[0], got[3], ref[0], ref[3], t_max)
+    assert float((ref[3] >= 0).float().mean()) > 0.3
+    assert int(stats[0]) > 0 and int(stats[1]) > 0
+
+
 def test_per_mesh_wrappers_refuse_bad_inputs(cuda):
-    """Non-contiguous rays and a K5 tree deeper than the kernel's stack
-    raise instead of falling back."""
+    """Non-contiguous rays, K4 and K5 trees deeper than the kernels'
+    stacks and float4 rows that are not 16-byte aligned raise instead of
+    falling back."""
     pos = torch.rand((300, 3), device=cuda)
     tri = pos.reshape(-1, 3, 3)
     v0, e1, e2 = tri[:, 0], tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]
@@ -285,18 +356,30 @@ def test_per_mesh_wrappers_refuse_bad_inputs(cuda):
     w4 = wide.flatten_bvh4(bvh, v0, e1, e2)
     rays = torch.rand((64, 6), device=cuda)
     o, d = rays[:, :3], rays[:, 3:]
+    n0 = (traverse_cuda.trace_tiles_flat.launches, wide.trace_tiles4.launches)
     with pytest.raises(ValueError):
         traverse_cuda.trace_tiles_flat(flat, o, d, 0.0, 1e4)
+    o, d = o.contiguous(), d.contiguous()
+    with pytest.raises(ValueError):                 # deeper than 64
+        traverse_cuda.trace_tiles_flat(flat._replace(stack=65), o, d, 0.0,
+                                       1e4)
     with pytest.raises(ValueError):
-        wide.trace_tiles4(w4._replace(stack=10 ** 6), o.contiguous(),
-                          d.contiguous(), 0.0, 1e4)
-    shifted = torch.empty(w4.tris4.numel() + 1, device=cuda)[1:]
-    shifted.copy_(w4.tris4.reshape(-1))
-    n0 = wide.trace_tiles4.launches
-    with pytest.raises(ValueError):                 # tris4 not 16-byte aligned
-        wide.trace_tiles4(w4._replace(tris4=shifted.reshape(-1, 12)),
-                          o.contiguous(), d.contiguous(), 0.0, 1e4)
-    assert wide.trace_tiles4.launches == n0
+        wide.trace_tiles4(w4._replace(stack=10 ** 6), o, d, 0.0, 1e4)
+
+    def shifted(rows):                              # not 16-byte aligned
+        t = torch.empty(rows.numel() + 1, device=cuda)[1:]
+        t.copy_(rows.reshape(-1))
+        return t.reshape(rows.shape)
+
+    for bad in (flat._replace(pairs=shifted(flat.pairs)),
+                flat._replace(tris4=shifted(flat.tris4))):
+        with pytest.raises(ValueError):
+            traverse_cuda.trace_tiles_flat(bad, o, d, 0.0, 1e4)
+    with pytest.raises(ValueError):
+        wide.trace_tiles4(w4._replace(tris4=shifted(w4.tris4)), o, d, 0.0,
+                          1e4)
+    assert (traverse_cuda.trace_tiles_flat.launches,
+            wide.trace_tiles4.launches) == n0
 
 
 LAB_CASES = {

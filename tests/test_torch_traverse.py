@@ -3,7 +3,10 @@
 
 - ``build_lbvh`` / ``refit_lbvh``, ``flatten_bvh`` / ``refit_flat_bvh`` and
   ``flatten_bvh4`` must give the JAX package's arrays EXACTLY, after the
-  layout change ((Nt, 9|36, 128) lane columns -> (N, 9|36) rows).
+  layout change ((Nt, 9|36, 128) lane columns -> (N, 9|36) rows); K4's
+  float4 copies (``nodes4``, ``pairs``, ``tris4``) and depth hold those
+  rows, and a float32 emulation of K4's near-first walk over the pair rows
+  returns the DFS walk's hits, exact-t ties included.
 - The plain versions of K4 and K5 (the brute-force oracle over the
   stream-ordered triangles), fed the reference's own trees through
   ``from_reference_arrays``, must match the JAX kernels (Pallas in
@@ -180,6 +183,78 @@ def test_wide_tris4_pads_each_vector(leaf_size):
         t_flatten.lane_rows(ref4.tris, len(ref4.tri_perm), 9))
 
 
+def _depth(node, left, right, n_int, leaf_size):
+    """Nodes on the longest root-to-leaf path of the flattened tree,
+    counted on the LBVH by recursion (subtrees of at most leaf_size
+    triangles collapse into one leaf)."""
+    def count(v):
+        return 1 if v >= n_int else count(left[v]) + count(right[v])
+
+    if node >= n_int or count(node) <= leaf_size:
+        return 1
+    return 1 + max(_depth(left[node], left, right, n_int, leaf_size),
+                   _depth(right[node], left, right, n_int, leaf_size))
+
+
+def _check_k4_rows(flat):
+    """FlatBVH's float4 copies against its (N, 9) / (T, 9) rows: nodes4
+    and tris4 pad each vector with a 0; pair row 1 + k holds the k-th
+    internal node's children i + 1 and skip(i + 1), row 0 the root beside
+    a NaN box with count -1."""
+    nodes, tris = flat.nodes.numpy(), flat.tris.numpy()
+    for rows4, rows in ((flat.nodes4, nodes), (flat.tris4, tris)):
+        assert rows4.dtype == torch.float32 and rows4.is_contiguous()
+        r = rows4.numpy().reshape(-1, 3, 4)
+        np.testing.assert_array_equal(r[..., :3].reshape(-1, 9), rows)
+        assert not r[..., 3].any()
+    inner = [i for i in range(flat.num_nodes) if nodes[i, 8] == 0]
+    row_of = {i: 1 + k for k, i in enumerate(inner)}
+
+    def slot(c):
+        link = ((nodes[c, 7], nodes[c, 8]) if nodes[c, 8] > 0
+                else (row_of[c], 0.0))
+        return [*nodes[c, :6], *link]
+
+    want = []
+    for i in [None, *inner]:
+        if i is None:
+            a, b = slot(0), [np.nan] * 6 + [0.0, -1.0]
+        else:
+            a, b = slot(i + 1), slot(int(nodes[i + 1, 6]))
+        want.append(a[:6] + b[:6] + a[6:] + b[6:])
+    assert flat.pairs.is_contiguous()
+    np.testing.assert_array_equal(flat.pairs.numpy(),
+                                  np.array(want, np.float32))
+
+
+@pytest.mark.parametrize("leaf_size", [1, 8])
+def test_flat_k4_rows_hold_the_node_rows(leaf_size):
+    """K4's copies and depth from ``flatten_bvh`` and from
+    ``from_reference_arrays`` (the reference's tree) agree with their own
+    (N, 9) / (T, 9) rows, with each other, and the depth with a recursive
+    count on the LBVH."""
+    rng = np.random.default_rng(41 + leaf_size)
+    pos, idx = random_tris(rng, 140)
+    v0, e1, e2 = mt_data(pos, idx)
+    ref = j_flatten(j_build_lbvh(pos, idx), v0, e1, e2, leaf_size=leaf_size)
+    tb = build_lbvh(pos, idx)
+    got = t_flatten.flatten_bvh(tb, t_(v0), t_(e1), t_(e2),
+                                leaf_size=leaf_size)
+    want = t_flatten.from_reference_arrays(
+        *(np.asarray(x) for x in (ref.nodes, ref.tris, ref.tri_perm)),
+        ref.num_nodes,
+        *(np.asarray(x) for x in (ref.refit_level, ref.refit_a,
+                                  ref.refit_b)))
+    for f in (got, want):
+        _check_k4_rows(f)
+    left, right = tb.left.numpy(), tb.right.numpy()
+    depth = _depth(0, left, right, len(left), leaf_size)
+    assert got.stack == want.stack == depth > 5
+    for name in ("nodes4", "pairs", "tris4"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      getattr(want, name).numpy(), name)
+
+
 def test_refit_flat_bvh_equals_reference():
     rng = np.random.default_rng(97)
     pos, idx = random_tris(rng, 97)
@@ -195,6 +270,151 @@ def test_refit_flat_bvh_equals_reference():
         got2.nodes.numpy(), t_flatten.lane_rows(ref2.nodes, N, 9))
     np.testing.assert_array_equal(
         got2.tris.numpy(), t_flatten.lane_rows(ref2.tris, T, 9))
+    # K4's copies follow the refitted rows (the depth stays)
+    _check_k4_rows(got2)
+    assert got2.stack == got.stack
+    assert not np.array_equal(got2.pairs.numpy(), got.pairs.numpy())
+
+
+def _box(o, inv, lo, hi, t_min, best_t):
+    """K4's slab test in float32; fmin / fmax skip a NaN as CUDA's do."""
+    t0, t1 = (lo - o) * inv, (hi - o) * inv
+    tn = np.fmax(np.fmax(np.fmin(t0[0], t1[0]), np.fmin(t0[1], t1[1])),
+                 np.fmin(t0[2], t1[2]))
+    tf = np.fmin(np.fmin(np.fmax(t0[0], t1[0]), np.fmax(t0[1], t1[1])),
+                 np.fmax(t0[2], t1[2]))
+    return bool((tn <= tf) & (tf >= t_min) & (tn <= best_t)), tn
+
+
+def _uvt(o, d, tri, t_min):
+    """Moller-Trumbore with an exact 1/det in float32: (ok, t, u, v)."""
+    v0, e1, e2 = tri[0:3], tri[3:6], tri[6:9]
+    p = np.cross(d, e2)
+    inv_det = np.float32(1.0) / np.dot(e1, p)
+    tv = o - v0
+    u = np.dot(tv, p) * inv_det
+    q = np.cross(tv, e1)
+    v = np.dot(d, q) * inv_det
+    t = np.dot(e2, q) * inv_det
+    return bool((u >= 0) & (v >= 0) & (u + v <= 1) & (t >= t_min)), t, u, v
+
+
+def _dfs_walk(flat, o, d, t_min, t_max):
+    """The TPU kernel's walk: DFS order with skip links, a hit taken on
+    t <= best_t.  Returns (t, u, v, stream position)."""
+    nodes, tris = flat.nodes.numpy(), flat.tris.numpy()
+    inv = np.float32(1.0) / d
+    best = [t_max, np.float32(0), np.float32(0), -1]
+    i = 0
+    while t_max >= 0 and i < flat.num_nodes:
+        skip, start, count = (int(x) for x in nodes[i, 6:9])
+        hit, _ = _box(o, inv, nodes[i, 0:3], nodes[i, 3:6], t_min, best[0])
+        if hit and count == 0:
+            i += 1
+            continue
+        for j in range(start, start + count if hit else start):
+            ok, t, u, v = _uvt(o, d, tris[j], t_min)
+            if ok and t <= best[0]:
+                best = [t, u, v, j]
+        i = skip
+    return tuple(best)
+
+
+def _pairs_walk(flat, o, d, t_min, t_max, far_first=False):
+    """K4's walk over the pair rows (csrc/traverse_flat.cu:
+    trace_flat_pairs_kernel), its stack capped at the tree's depth: leaves
+    at once, nearer first; descend into the nearer internal child, push
+    the farther with its entry distance; a hit taken on t < best_t, or on
+    t == best_t at a later stream position.  far_first visits the other
+    child first, as a check that the result does not depend on the order.
+    Returns ((t, u, v, stream position), deepest stack)."""
+    pairs, tris = flat.pairs.numpy(), flat.tris.numpy()
+    inv = np.float32(1.0) / d
+    best = [t_max, np.float32(0), np.float32(0), -1]
+    stack, deepest, row = [], 0, 0
+
+    def leaf(a, c):
+        nonlocal best
+        for j in range(a, a + c):
+            ok, t, u, v = _uvt(o, d, tris[j], t_min)
+            if ok and (t < best[0] or (t == best[0] and j > best[3])):
+                best = [t, u, v, j]
+
+    while t_max >= 0:
+        p = pairs[row]
+        kids = []
+        for k in (0, 1):
+            hit, tn = _box(o, inv, p[6 * k:6 * k + 3], p[6 * k + 3:6 * k + 6],
+                           t_min, best[0])
+            kids.append((hit, tn, int(p[12 + 2 * k]), int(p[13 + 2 * k])))
+        h1, tn1 = kids[1][:2]
+        if h1 and (not kids[0][0] or (tn1 < kids[0][1]) != far_first):
+            kids.reverse()
+        (h0, tn0, a0, c0), (h1, tn1, a1, c1) = kids
+        if h0 and c0 > 0:
+            leaf(a0, c0)
+        if h1 and c1 > 0 and tn1 <= best[0]:
+            leaf(a1, c1)
+        in0 = h0 and c0 == 0 and tn0 <= best[0]
+        in1 = h1 and c1 == 0 and tn1 <= best[0]
+        if in0:
+            if in1:
+                assert len(stack) < flat.stack    # no push is ever dropped
+                stack.append((a1, tn1))
+                deepest = max(deepest, len(stack))
+            row = a0
+            continue
+        if in1:
+            row = a1
+            continue
+        while stack and stack[-1][1] > best[0]:
+            stack.pop()
+        if not stack:
+            break
+        row = stack.pop()[0]
+    return tuple(best), deepest
+
+
+@pytest.mark.parametrize("leaf_size", [1, 8])
+def test_pairs_walk_returns_the_dfs_walks_hits(leaf_size):
+    """Every triangle twice (the copies tie at exactly the same t): K4's
+    walk over the pair rows, near-first and far-first, returns the DFS
+    walk's (t, u, v, stream position) on every ray, each hit the later
+    stream position of its pair, and never needs more stack than the
+    tree's depth less one."""
+    rng = np.random.default_rng(60 + leaf_size)
+    pos, _ = random_tris(rng, 24, spread=3.0)
+    pos = np.concatenate([pos, pos])
+    idx = np.arange(pos.shape[0], dtype=np.uint32)
+    flat = t_flatten.flatten_bvh(build_lbvh(pos, idx),
+                                 *(t_(x) for x in mt_data(pos, idx)),
+                                 leaf_size=leaf_size)
+    perm = flat.tri_perm.numpy()
+    later = np.empty_like(perm)          # stream position -> its pair's last
+    where = np.argsort(perm)
+    n = len(perm) // 2
+    for s_pos, tri_id in enumerate(perm):
+        later[s_pos] = max(where[tri_id % n], where[tri_id % n + n])
+    cents = pos.reshape(-1, 3, 3).mean(axis=1)
+    R = 160
+    o = rng.uniform(-8.0, 8.0, size=(R, 3)).astype(np.float32)
+    aim = cents[rng.integers(0, len(cents), R)] + rng.normal(
+        0.0, 0.02, size=(R, 3)).astype(np.float32)
+    d = (aim - o) / np.linalg.norm(aim - o, axis=1, keepdims=True)
+    t_max = np.where(np.arange(R) % 7 == 3, -1.0, 1e4).astype(np.float32)
+    t_max[::11] = 9.0                    # some rays end before their hit
+    n_hit, deepest = 0, 0
+    for r in range(R):
+        want = _dfs_walk(flat, o[r], d[r], np.float32(1e-4), t_max[r])
+        for far_first in (False, True):
+            got, depth = _pairs_walk(flat, o[r], d[r], np.float32(1e-4),
+                                     t_max[r], far_first)
+            assert got == want, (r, far_first)
+            deepest = max(deepest, depth)
+        if want[3] >= 0:
+            n_hit += 1
+            assert want[3] == later[want[3]]
+    assert n_hit > R // 2 and 0 < deepest < flat.stack
 
 
 @pytest.mark.parametrize("kernel", ["K4", "K5"])
