@@ -19,8 +19,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     16,384 rays drawn from them, and on the 9-instance nested scene; K4 and
     K5 in the model instance's object space on 16,384 rays of the frame
     and on the frame's two full waves (one plain run per wave, compared by
-    triangle id; K4 in both its walks, near-first over child pairs and the
-    TPU's DFS order), and through their per-instance loop on the nested
+    triangle id), and through their per-instance loop on the nested
     scene; K2/K3 on 1280x720 G-buffers, both axes;
  4. the paths at 1280x720, each with every launch count set to 0 just
     before it and read just after: "wide" (3 warm-up, 60 timed frames, then
@@ -47,7 +46,6 @@ JAX package.
 
 from __future__ import annotations
 
-import functools
 import json
 import os
 import subprocess
@@ -149,10 +147,10 @@ def build_kernels():
     for name, (regs, frame, st, ld) in reports.items():
         print(f"  ptxas {name}: {regs} registers, {frame} bytes stack "
               f"frame, {st} / {ld} bytes spill stores / loads")
-    for k, key, n in (("K4", "trace_flat_", 2),
-                      ("K5", "trace_wide4_kernel", 1)):
+    for k, key in (("K4", "trace_flat_pairs_kernel"),
+                   ("K5", "trace_wide4_kernel")):
         rows = [r for name, r in reports.items() if key in name]
-        check(len(rows) == n and all(r[1:] == (0, 0, 0) for r in rows),
+        check(len(rows) == 1 and rows[0][1:] == (0, 0, 0),
               f"{k}: no stack frame and no spills")
     return secs
 
@@ -802,8 +800,6 @@ def main():
     t_m = torch.where(alive, t_f[pick], -1.0).contiguous()
     inv_model = inv_rows(torch.linalg.inv(worlds_f))[model].contiguous()
     per_mesh_trees = {"K4": (flat, trace_tiles_flat),
-                      "K4 dfs": (flat, functools.partial(trace_tiles_flat,
-                                                         design="dfs")),
                       "K5": (wide, trace_tiles4)}
     checks = {k: [per_mesh_check(f"{k} model mesh", tree, kernel, o_m, d_m,
                                  T_MIN_SECONDARY, t_m, inv_model)]

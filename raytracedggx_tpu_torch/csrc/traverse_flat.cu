@@ -4,18 +4,16 @@
 // _traverse_kernel (launched by trace_rays_pallas).
 //
 // Contract (the TPU kernel's outputs, its exact-t ties included):
-//   * the tree is the DFS node stream of ops/flatten.py: node i's first
+//   * the tree is the DFS node stream of ops/flatten.py (node i's first
 //     child is i + 1, skip(i) jumps past its subtree, a leaf owns the
-//     stream triangles [tri_start, tri_start + tri_count).  The kernels
-//     read its float4 copies (FlatBVH.nodes4, .pairs, .tris4; the links as
-//     exact f32 integers, < 2^24):
-//       nodes4 (N, 12): lo.xyz _, hi.xyz _, skip tri_start tri_count _;
-//       pairs (P, 16): row 1 + k holds both children of the k-th internal
-//         node (i + 1 and skip(i + 1)): two boxes lo.xyz hi.xyz, then per
-//         child its pair row and 0 (internal) or tri_start and tri_count
-//         (leaf); row 0 holds the root beside an empty slot (NaN box,
-//         count -1);
-//       tris4 (T, 12): v0 _ e1 _ e2 _ in stream order.
+//     stream triangles [tri_start, tri_start + tri_count)), read through
+//     its float4 copies, the links as exact f32 integers (< 2^24):
+//       pairs (P, 16) (FlatBVH.pairs): row 1 + k holds both children of
+//         the k-th internal node i, nodes i + 1 and skip(i + 1): two boxes
+//         lo.xyz hi.xyz, then per child its pair row and 0 (internal) or
+//         tri_start and tri_count (leaf); row 0 holds the root beside an
+//         empty slot (NaN box, count -1);
+//       tris4 (T, 12) (FlatBVH.tris4): v0 _ e1 _ e2 _ in stream order.
 //   * inv (12 floats, or null for rays already in object space): the
 //     instance's inverse world, 3x3 row-major then translation; the ray
 //     goes to object space as o*M + t and d*M, direction unnormalised so
@@ -25,42 +23,42 @@
 //     taken on t < best_t, or on t == best_t at a later stream position.
 //     The TPU walks the stream's DFS order and takes t <= best_t, so of
 //     triangles at exactly the same t the last in the stream wins; with
-//     the culling inclusive (tn <= best_t) every order that takes hits
-//     this way returns that triangle too.
+//     the culling inclusive (tn <= best_t) every visit order that takes
+//     hits this way returns that triangle too.
 //   * outputs t (t_max on a miss), u, v (0 on a miss) and the stream
 //     position (-1 on a miss).  Rays with t_max < 0 are dead and return
 //     at once (no triangle can pass t_min <= t <= t_max < 0).
+//   * the stack holds at most depth - 1 entries (FlatBVH.stack is the
+//     depth); the wrapper raises above K4_MAX_STACK.
 //   * stats (null, or 2 int64): box tests and triangle tests, summed.
 //
 // What bounds it on this card: the latency of dependent loads.  A ray's
-// next row depends on its own last test, the tree of one mesh (about
-// 2 MB for 82k triangles) sits in L2, and the arithmetic is 25 operations
-// per box and 51 per triangle.  On the frame's waves nearly every ray
-// leaves at the root; the kernel's time is the chain of dependent visits
-// of the few warps that enter the mesh.  The TPU kernel walked a 1024-ray
-// packet through the tree, with a frustum pre-test and a tile-wide any(),
-// so every ray paid for its packet's union of visits; here each thread
-// walks only the rows its own ray admits, and the caller's ray order
-// (screen blocks, octant + Morton) keeps a warp's rays on the same rows.
-// Each visit costs one round trip, not one per field:
-//   * 16-byte loads: a row's float4s are issued together;
+// next row depends on its own last test, the rows of one mesh (about
+// 5 MB for 82k triangles) sit in L2, and the arithmetic is 25 operations
+// per box and 51 per triangle.  On the frame's waves nearly
+// every ray leaves at the root; the kernel's time is the chain of
+// dependent visits of the few warps that enter the mesh.  The TPU kernel
+// walked a 1024-ray packet through the tree in DFS order with a frustum
+// pre-test and a tile-wide any(), so every ray paid for its packet's
+// union of visits; here each thread walks only the rows its own ray
+// admits (the caller's ray order, screen blocks or octant + Morton, keeps
+// a warp's rays on the same rows), and the design shortens the chain:
+//   * near-first over child pairs: one visit tests both children of a
+//     node from one 64-byte row (four float4 issued together); hit leaves
+//     are tested at once, nearer first, each while its entry distance
+//     still passes best_t; the walk descends into the nearer internal
+//     child and pushes the farther with its entry distance, so a pop that
+//     best_t has since passed costs no load.  The TPU's DFS order, with
+//     the same loads and prefetch, kept testing far subtrees its best t
+//     had not yet ruled out: 1.3-1.4x this walk's time and 1.1-1.2x its
+//     box tests, 1.3-1.8x its triangle tests on the frame's waves
+//     (PERF.md, PR 6);
 //   * a leaf prefetch: triangle j + 1's loads go out before triangle j is
 //     tested, so a leaf costs about one round trip, not one per triangle;
+//   * the stack in shared memory, [entry][thread] so that the 32 threads
+//     of a warp touch 32 banks, sized at launch from the tree's depth;
 //   * stats summed over the warp, one pair of atomics per warp.
-// Two walks (both in the first measurement):
-//   * trace_flat_dfs_kernel: the TPU's DFS order with skip links over
-//     nodes4, no stack; a ray keeps testing far subtrees its best t has
-//     not yet ruled out;
-//   * trace_flat_pairs_kernel: near-first over pairs.  One visit tests
-//     both children of a node from one 64-byte row; hit leaves are tested
-//     at once, nearer first, each while its entry distance still passes
-//     best_t; the walk descends into the nearer internal child and pushes
-//     the farther, with its entry distance, onto a stack in shared memory
-//     ([entry][thread], so the 32 threads of a warp touch 32 banks; sized
-//     at launch from FlatBVH.stack, the tree's depth, which no walk
-//     exceeds); a pop whose entry distance best_t has since passed costs
-//     no load.
-// No fast math: NaN boxes must fail every comparison.
+// No fast math: the NaN box must fail every comparison.
 
 #include <cuda_runtime.h>
 
@@ -107,75 +105,6 @@ __device__ __forceinline__ void leaf_hit(const float4* __restrict__ tris,
   }
 }
 
-__device__ __forceinline__ rtggx::Ray ray_of(const float* __restrict__ inv,
-                                             const float* __restrict__ ray_o,
-                                             const float* __restrict__ ray_d,
-                                             int r) {
-  return rtggx::make_ray(inv, ray_o[3 * r], ray_o[3 * r + 1],
-                         ray_o[3 * r + 2], ray_d[3 * r], ray_d[3 * r + 1],
-                         ray_d[3 * r + 2]);
-}
-
-__device__ __forceinline__ void add_stats(unsigned long long* stats,
-                                          unsigned n_box, unsigned n_tri) {
-  if (stats == nullptr) return;  // uniform: every thread of the warp is here
-  n_box = warp_sum(n_box);
-  n_tri = warp_sum(n_tri);
-  if ((threadIdx.x & 31) == 0) {
-    atomicAdd(stats, (unsigned long long)n_box);
-    atomicAdd(stats + 1, (unsigned long long)n_tri);
-  }
-}
-
-__global__ void __launch_bounds__(K4_THREADS)
-trace_flat_dfs_kernel(const float4* __restrict__ nodes, int num_nodes,
-                      const float4* __restrict__ tris,
-                      const float* __restrict__ inv,
-                      const float* __restrict__ ray_o,
-                      const float* __restrict__ ray_d,
-                      const float* __restrict__ t_max, float t_min,
-                      int n_rays, float* __restrict__ out_t,
-                      float* __restrict__ out_u, float* __restrict__ out_v,
-                      int* __restrict__ out_pos,
-                      unsigned long long* __restrict__ stats) {
-  const int r = blockIdx.x * K4_THREADS + threadIdx.x;
-  unsigned n_box = 0, n_tri = 0;  // this ray's tests
-  if (r < n_rays) {
-    float best_t = t_max[r], best_u = 0.0f, best_v = 0.0f;
-    int best_pos = -1;
-    if (best_t >= 0.0f) {  // t_max < 0: dead ray, no traversal
-      const rtggx::Ray ray = ray_of(inv, ray_o, ray_d, r);
-      int i = 0;
-      while (i < num_nodes) {
-        const float4* __restrict__ nd = nodes + (size_t)i * 3;
-        const float4 lo = __ldg(nd), hi = __ldg(nd + 1), ln = __ldg(nd + 2);
-        ++n_box;
-        float tn;
-        if (!rtggx::box_hit(lo.x, lo.y, lo.z, hi.x, hi.y, hi.z, ray, t_min,
-                            best_t, tn)) {
-          i = (int)ln.x;  // past the subtree
-          continue;
-        }
-        const int count = (int)ln.z;
-        if (count == 0) {  // internal: descend to the first child
-          ++i;
-          continue;
-        }
-        const int start = (int)ln.y;
-        n_tri += count;
-        leaf_hit(tris, start, start + count, ray, t_min, best_t, best_u, best_v,
-                 best_pos);
-        i = (int)ln.x;
-      }
-    }
-    out_t[r] = best_t;
-    out_u[r] = best_u;
-    out_v[r] = best_v;
-    out_pos[r] = best_pos;
-  }
-  add_stats(stats, n_box, n_tri);
-}
-
 __global__ void __launch_bounds__(K4_THREADS)
 trace_flat_pairs_kernel(const float4* __restrict__ pairs,
                         const float4* __restrict__ tris,
@@ -196,7 +125,9 @@ trace_flat_pairs_kernel(const float4* __restrict__ pairs,
     float best_t = t_max[r], best_u = 0.0f, best_v = 0.0f;
     int best_pos = -1;
     if (best_t >= 0.0f) {  // t_max < 0: dead ray, no traversal
-      const rtggx::Ray ray = ray_of(inv, ray_o, ray_d, r);
+      const rtggx::Ray ray = rtggx::make_ray(
+          inv, ray_o[3 * r], ray_o[3 * r + 1], ray_o[3 * r + 2],
+          ray_d[3 * r], ray_d[3 * r + 1], ray_d[3 * r + 2]);
       int row = 0, sp = 0;
       for (;;) {
         const float4* __restrict__ pr = pairs + (size_t)row * 4;
@@ -264,7 +195,14 @@ trace_flat_pairs_kernel(const float4* __restrict__ pairs,
     out_v[r] = best_v;
     out_pos[r] = best_pos;
   }
-  add_stats(stats, n_box, n_tri);
+  if (stats != nullptr) {  // uniform: every thread of the warp is here
+    n_box = warp_sum(n_box);
+    n_tri = warp_sum(n_tri);
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(stats, (unsigned long long)n_box);
+      atomicAdd(stats + 1, (unsigned long long)n_tri);
+    }
+  }
 }
 
 }  // namespace
@@ -282,35 +220,17 @@ extern "C" int rtggx_trace_flat(const void* pairs, const void* tris4,
     return (int)cudaErrorInvalidValue;
   const int blocks = (n_rays + K4_THREADS - 1) / K4_THREADS;
   const int smem = (int)sizeof(int2) * K4_THREADS * stack_size;
-  if (smem > 48 * 1024) {  // above the default dynamic limit
-    const cudaError_t err = cudaFuncSetAttribute(
-        trace_flat_pairs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  // up to 64 KB, above the default 48 KB a launch may take
+  const cudaError_t err = cudaFuncSetAttribute(
+      trace_flat_pairs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return (int)err;
   trace_flat_pairs_kernel<<<blocks, K4_THREADS, smem,
                             (cudaStream_t)stream>>>(
       (const float4*)pairs, (const float4*)tris4, (const float*)inv,
       (const float*)ray_o, (const float*)ray_d, (const float*)t_max, t_min,
       n_rays, stack_size, (float*)out_t, (float*)out_u, (float*)out_v,
       (int*)out_pos, (unsigned long long*)stats);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int rtggx_trace_flat_dfs(const void* nodes4, int num_nodes,
-                                    const void* tris4, const void* inv,
-                                    const void* ray_o, const void* ray_d,
-                                    const void* t_max, float t_min,
-                                    int n_rays, void* out_t, void* out_u,
-                                    void* out_v, void* out_pos, void* stats,
-                                    void* stream) {
-  if (n_rays <= 0) return 0;
-  const int blocks = (n_rays + K4_THREADS - 1) / K4_THREADS;
-  trace_flat_dfs_kernel<<<blocks, K4_THREADS, 0, (cudaStream_t)stream>>>(
-      (const float4*)nodes4, num_nodes, (const float4*)tris4,
-      (const float*)inv, (const float*)ray_o, (const float*)ray_d,
-      (const float*)t_max, t_min, n_rays, (float*)out_t, (float*)out_u,
-      (float*)out_v, (int*)out_pos, (unsigned long long*)stats);
   return (int)cudaGetLastError();
 }
 

@@ -2,7 +2,7 @@
 
 Torch port of raytracedggx_tpu/engine/renderer.py.  ``traversal``:
 "wide" (and "auto") is the fused instanced traversal, kernel K1, one
-launch per wave; "pallas" (kernel K4, DFS with skip links) and "pallas4"
+launch per wave; "pallas" (kernel K4, a binary tree) and "pallas4"
 (kernel K5, 4-wide with a stack) trace each instance's mesh BVH in its
 object space, one launch per instance and wave; "jax" is the plain
 wavefront traversal over the per-mesh LBVHs.  The per-mesh paths shade
@@ -112,7 +112,7 @@ class Renderer:
         self.traversal = "wide" if cfg.traversal == "auto" else cfg.traversal
         if self.traversal not in ("wide", "pallas4", "pallas", "jax"):
             raise ValueError(f"traversal={cfg.traversal!r}")
-        self.kernels = self.impl = None
+        self.kernels = None
         self.set_kernels(cfg.kernels)
         self.scene = scene
         self.camera = camera or Camera(width=cfg.width, height=cfg.height)
@@ -286,7 +286,11 @@ class Renderer:
         if kernels == "cuda" and self.device.type != "cuda":
             raise ValueError("kernels='cuda' needs a CUDA device")
         self.kernels = kernels
-        self.impl = "xla" if kernels == "xla" else "cuda"
+
+    @property
+    def impl(self) -> str:
+        """The spatial filters' impl: "xla" (plain passes) or "cuda"."""
+        return "xla" if self.kernels == "xla" else "cuda"
 
     def set_metallic(self, mesh_idx: int, metallic: float):
         """RayTracer::SetMetallic (RayTracer.cpp:243-247): every instance

@@ -49,10 +49,6 @@ SIGNATURES = {
     # out_t out_u out_v out_pos stats stream
     "rtggx_trace_flat": (_P, _P, _P, _P, _P, _P, _F, _I, _I,
                          _P, _P, _P, _P, _P, _P),
-    # K4 in DFS order: nodes4 num_nodes tris4 inv ray_o ray_d t_max t_min
-    # n_rays out_t out_u out_v out_pos stats stream
-    "rtggx_trace_flat_dfs": (_P, _I, _P, _P, _P, _P, _P, _F, _I,
-                             _P, _P, _P, _P, _P, _P),
     # K5: nodes tris4 inv ray_o ray_d t_max t_min n_rays stack
     # out_t out_u out_v out_pos stats stream
     "rtggx_trace_wide4": (_P, _P, _P, _P, _P, _P, _F, _I, _I,

@@ -1,5 +1,5 @@
-"""Flatten an LBVH into the DFS node stream with skip links that kernel K4
-traverses.
+"""Flatten an LBVH into the DFS node stream with skip links, the tree
+kernel K4 traverses.
 
 Torch port of raytracedggx_tpu/ops/flatten.py.  Subtrees with at most
 ``leaf_size`` triangles collapse into leaves, and triangles are re-ordered
@@ -20,11 +20,11 @@ can trace one tree.
 
 Beside them each tree keeps the copies kernel K4 reads as float4, built
 from those rows by ``flatten_bvh``, ``from_reference_arrays`` and
-``refit_flat_bvh`` alike: ``nodes4`` and ``tris4`` (each row's vectors
-padded by a 0), ``pairs`` (``pair_rows``: both children of an internal
-node in one 64-byte row) and ``stack``, the tree's depth, by which the
-kernel's stack is sized.  The plain version and the kernel's bound keep
-the (N, 9) / (T, 9) rows.
+``refit_flat_bvh`` alike: ``pairs`` (``pair_rows``: both children of an
+internal node in one 64-byte row), ``tris4`` (each triangle's vectors
+padded by a 0) and ``stack``, the tree's depth, by which the kernel's
+stack is sized.  The plain version and the kernel's bound keep the
+(N, 9) / (T, 9) rows.
 """
 
 from __future__ import annotations
@@ -48,7 +48,6 @@ class FlatBVH(NamedTuple):
     refit_b: torch.Tensor      # (N,) int64
     links: torch.Tensor        # (N, 3) f32 static skip / start / count
     # K4's float4 copies of the rows above (ops/traverse_cuda.py)
-    nodes4: torch.Tensor       # (N, 12) f32: lo _ hi _ skip start count _
     pairs: torch.Tensor        # (P, 16) f32 child-pair rows (pair_rows)
     tris4: torch.Tensor        # (T, 12) f32: v0 _ e1 _ e2 _
     stack: int                 # nodes on the longest root-to-leaf path
@@ -91,17 +90,17 @@ def stream_rows(tri_v0, tri_e1, tri_e2, perm):
     return torch.cat([tri_v0[idx], tri_e1[idx], tri_e2[idx]], dim=1)
 
 
-def float4_rows(rows):
-    """(M, 9) rows of three 3-vectors (a triangle's v0 e1 e2, a node's lo
-    hi links) -> (M, 12): each vector padded to a float4 with a 0, so the
-    kernels read a row as three 16-byte loads.  Pad slots keep v0 = NaN."""
-    t = rows.reshape(-1, 3, 3)
+def float4_rows(tris):
+    """(T, 9) rows v0 e1 e2 -> (T, 12): each vector padded to a float4
+    with a 0, so K1, K4 and K5 read a triangle as three 16-byte loads.
+    Pad slots keep v0 = NaN."""
+    t = tris.reshape(-1, 3, 3)
     return torch.cat([t, torch.zeros_like(t[..., :1])], dim=2).reshape(-1, 12)
 
 
 def pair_rows(nodes):
-    """(N, 9) DFS rows -> (P, 16) child-pair rows, P = 1 + the internal
-    nodes.  Internal node i's children are node i + 1 and node
+    """(N, 9) DFS rows -> (P, 16) child-pair rows, one more than there
+    are internal nodes.  Internal node i's children are node i + 1 and node
     skip(i + 1); the k-th internal node in DFS order gets row 1 + k, and
     row 0 holds the root as its first child beside an empty slot (a NaN
     box, which fails every slab test, and count -1).  Columns:
@@ -139,10 +138,9 @@ def tree_depth(nodes) -> int:
 
 
 def k4_rows(nodes, tris):
-    """K4's float4 copies of the (N, 9) / (T, 9) rows: nodes4, pairs,
-    tris4 (the FlatBVH fields of those names)."""
-    return dict(nodes4=float4_rows(nodes), pairs=pair_rows(nodes),
-                tris4=float4_rows(tris))
+    """K4's float4 copies of the (N, 9) / (T, 9) rows: pairs, tris4 (the
+    FlatBVH fields of those names)."""
+    return dict(pairs=pair_rows(nodes), tris4=float4_rows(tris))
 
 
 def flatten_bvh(bvh, tri_v0, tri_e1, tri_e2, leaf_size: int = 4) -> FlatBVH:

@@ -1,11 +1,11 @@
-"""Per-mesh DFS traversal with skip links: kernel K4 and its plain twin.
+"""Per-mesh binary-tree traversal: kernel K4 and its plain twin.
 
 Torch/CUDA port of raytracedggx_tpu/ops/traverse_pallas.py:200-263
 (``trace_rays_pallas``) and :399-437 (``trace_scene_pallas``), the
 ``traversal="pallas"`` backend.  The TPU kernel ``_traverse_kernel``
 becomes the CUDA kernel in ``csrc/traverse_flat.cu``, launched by
 ``trace_tiles_flat`` with one ray per thread over the tree's float4
-copies (``FlatBVH.pairs`` / ``nodes4`` and ``tris4``).  Its plain version is
+copies (``FlatBVH.pairs`` and ``tris4``).  Its plain version is
 ``trace_stream_plain``: the brute-force oracle ``trace_bruteforce`` over
 the stream-ordered triangles, independent of the tree.
 
@@ -82,41 +82,28 @@ def check_stack(kernel, need, cap):
 
 
 def trace_tiles_flat(flat: FlatBVH, ray_o, ray_d, t_min, t_max, inv=None,
-                     stats=None, design="pairs"):
+                     stats=None):
     """K4 wrapper: closest hit of (R, 3) rays against one FlatBVH, in the
     object space of ``inv`` ((12,) inverse-world row; None: the rays are
     in object space already).  CUDA tensors launch the kernel (or raise:
     a tree deeper than the kernel's compiled stack, or rows that are not
     16-byte aligned); CPU tensors take ``trace_stream_plain``.  Returns
     (t, u, v, stream position int32).  stats: optional (2,) int64 tensor
-    the kernel adds its box and triangle tests to.  design: "pairs"
-    (near-first over ``flat.pairs``) or "dfs" (the TPU's order over
-    ``flat.nodes4``)."""
+    the kernel adds its box and triangle tests to."""
     t_max = per_ray(t_max, ray_o)
     if ray_o.device.type == "cpu":
         return trace_stream_plain(flat.tris, ray_o, ray_d, t_min, t_max,
                                   inv)
-    tris4 = (flat.tris4, (flat.tris.shape[0], 12))
+    out = launch_outputs(ray_o, ray_d, inv, stats, {
+        "pairs": (flat.pairs, (None, 16)),
+        "tris4": (flat.tris4, (flat.tris.shape[0], 12))})
     lib = load_library()
-    if design == "dfs":
-        out = launch_outputs(ray_o, ray_d, inv, stats, {
-            "nodes4": (flat.nodes4, (flat.num_nodes, 12)), "tris4": tris4})
-        err = lib.rtggx_trace_flat_dfs(
-            flat.nodes4.data_ptr(), int(flat.num_nodes),
-            flat.tris4.data_ptr(), pointer(inv), ray_o.data_ptr(),
-            ray_d.data_ptr(), t_max.data_ptr(), float(t_min),
-            ray_o.shape[0], *(x.data_ptr() for x in out), pointer(stats),
-            stream_handle(ray_o.device))
-    else:
-        out = launch_outputs(ray_o, ray_d, inv, stats, {
-            "pairs": (flat.pairs, (None, 16)), "tris4": tris4})
-        check_stack("K4", flat.stack, lib.rtggx_k4_max_stack())
-        err = lib.rtggx_trace_flat(
-            flat.pairs.data_ptr(), flat.tris4.data_ptr(), pointer(inv),
-            ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(),
-            float(t_min), ray_o.shape[0], int(flat.stack),
-            *(x.data_ptr() for x in out), pointer(stats),
-            stream_handle(ray_o.device))
+    check_stack("K4", flat.stack, lib.rtggx_k4_max_stack())
+    err = lib.rtggx_trace_flat(
+        flat.pairs.data_ptr(), flat.tris4.data_ptr(), pointer(inv),
+        ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(), float(t_min),
+        ray_o.shape[0], int(flat.stack), *(x.data_ptr() for x in out),
+        pointer(stats), stream_handle(ray_o.device))
     check_launch(err, "K4 trace_tiles_flat")
     trace_tiles_flat.launches += 1
     return out

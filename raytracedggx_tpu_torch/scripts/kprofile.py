@@ -60,8 +60,7 @@ KERNELS = {"K1": ("trace_instanced_kernel",),
            "K2": ("reflection_pass_kernel", "spatial_pass_kernel<true"),
            "K3": ("diffuse_pass_kernel", "spatial_pass_kernel<false"),
            "K5": ("trace_wide4_kernel",),
-           "K4": ("trace_flat_pairs_kernel", "trace_flat_dfs_kernel",
-                  "trace_flat_kernel")}
+           "K4": ("trace_flat_pairs_kernel", "trace_flat_kernel")}
 # the per-mesh paths: traversal -> (kernel, its Renderer.geom field)
 PER_MESH = {"pallas4": ("K5", "wide"), "pallas": ("K4", "flat")}
 

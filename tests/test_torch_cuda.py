@@ -274,9 +274,8 @@ def test_k5_deep_tree_matches_plain(cuda):
     assert int(stats[0]) > 0 and int(stats[1]) > 0
 
 
-@pytest.mark.parametrize("design", ["pairs", "dfs"])
 @pytest.mark.parametrize("leaf_size", [1, 8])
-def test_k4_ties_go_to_the_later_stream_position(cuda, leaf_size, design):
+def test_k4_ties_go_to_the_later_stream_position(cuda, leaf_size):
     """Every triangle twice: the two copies tie at exactly the same t, and
     K4 returns the later stream position of the pair on every hit, as the
     TPU kernel's DFS walk with t <= best_t does (and the plain version,
@@ -301,8 +300,7 @@ def test_k4_ties_go_to_the_later_stream_position(cuda, leaf_size, design):
     d = cents[torch.as_tensor(rng.integers(0, n, R), device=cuda)] - o
     d = (d / d.norm(dim=1, keepdim=True)).contiguous()
     t_max = torch.where(torch.arange(R, device=cuda) % 5 == 0, -1.0, 1e4)
-    got = traverse_cuda.trace_tiles_flat(flat, o, d, 1e-4, t_max,
-                                         design=design)
+    got = traverse_cuda.trace_tiles_flat(flat, o, d, 1e-4, t_max)
     ref = traverse_cuda.trace_stream_plain(flat.tris, o, d, 1e-4, t_max)
     torch.cuda.synchronize()
     _hold(got[0], got[3], ref[0], ref[3], t_max)

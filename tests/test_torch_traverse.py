@@ -4,7 +4,7 @@
 - ``build_lbvh`` / ``refit_lbvh``, ``flatten_bvh`` / ``refit_flat_bvh`` and
   ``flatten_bvh4`` must give the JAX package's arrays EXACTLY, after the
   layout change ((Nt, 9|36, 128) lane columns -> (N, 9|36) rows); K4's
-  float4 copies (``nodes4``, ``pairs``, ``tris4``) and depth hold those
+  float4 copies (``pairs``, ``tris4``) and depth hold those
   rows, and a float32 emulation of K4's near-first walk over the pair rows
   returns the DFS walk's hits, exact-t ties included.
 - The plain versions of K4 and K5 (the brute-force oracle over the
@@ -197,16 +197,15 @@ def _depth(node, left, right, n_int, leaf_size):
 
 
 def _check_k4_rows(flat):
-    """FlatBVH's float4 copies against its (N, 9) / (T, 9) rows: nodes4
-    and tris4 pad each vector with a 0; pair row 1 + k holds the k-th
+    """FlatBVH's float4 copies against its (N, 9) / (T, 9) rows: tris4
+    pads each vector with a 0; pair row 1 + k holds the k-th
     internal node's children i + 1 and skip(i + 1), row 0 the root beside
     a NaN box with count -1."""
     nodes, tris = flat.nodes.numpy(), flat.tris.numpy()
-    for rows4, rows in ((flat.nodes4, nodes), (flat.tris4, tris)):
-        assert rows4.dtype == torch.float32 and rows4.is_contiguous()
-        r = rows4.numpy().reshape(-1, 3, 4)
-        np.testing.assert_array_equal(r[..., :3].reshape(-1, 9), rows)
-        assert not r[..., 3].any()
+    assert flat.tris4.dtype == torch.float32 and flat.tris4.is_contiguous()
+    r = flat.tris4.numpy().reshape(-1, 3, 4)
+    np.testing.assert_array_equal(r[..., :3].reshape(-1, 9), tris)
+    assert not r[..., 3].any()
     inner = [i for i in range(flat.num_nodes) if nodes[i, 8] == 0]
     row_of = {i: 1 + k for k, i in enumerate(inner)}
 
@@ -250,7 +249,7 @@ def test_flat_k4_rows_hold_the_node_rows(leaf_size):
     left, right = tb.left.numpy(), tb.right.numpy()
     depth = _depth(0, left, right, len(left), leaf_size)
     assert got.stack == want.stack == depth > 5
-    for name in ("nodes4", "pairs", "tris4"):
+    for name in ("pairs", "tris4"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       getattr(want, name).numpy(), name)
 
