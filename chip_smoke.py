@@ -27,8 +27,9 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     then 5 at metallic 0.5); then "wide" at kernels="xla" (K1 launched,
     the filters' plain passes), and after set_kernels("auto") K2 again;
  5. the golden cube scene at 96x54, 3 frames, against the JAX package's
-    frozen PNGs: the default frame on "wide", and bary_mode="ndc" with
-    emulate_formats on "pallas4" and "pallas";
+    frozen PNGs: the default frame and bary_mode="ndc" with
+    emulate_formats, each on "pallas4" and "pallas" (the default frame
+    also on "wide");
  6. the kernel lab: the kbench port's ray sets at 1280x720 over the model
     scene's trees (leaf 8, 16, 32, 64); for each of 15 variants covering
     every flag, K6a / K6b / K7 against its plain version on 16,384 rays
@@ -843,6 +844,7 @@ def main():
     print("== phase 5: golden cube scene")
     golden_check(dev)
     for trav in ("pallas4", "pallas"):
+        golden_check(dev, trav)
         golden_check(dev, trav, ndc_fmt=True)
 
     print("== phase 6: kernel lab")

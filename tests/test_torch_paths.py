@@ -28,6 +28,8 @@ from raytracedggx_tpu_torch.scene import Scene, default_materials, ground_cube
 
 W, H, FRAMES, METAL_FRAMES = 96, 54, 3, 2
 POS = np.array([0, 3.0, 0, 1.0], np.float32)
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
+                      "cube_scene_96x54_f3.png")
 NDC_FMT_GOLDEN = os.path.join(os.path.dirname(__file__), "golden",
                               "cube_scene_96x54_ndc_fmt_f3.png")
 
@@ -92,6 +94,24 @@ def test_ndc_formats_golden(traversal):
     want = np.asarray(Image.open(NDC_FMT_GOLDEN), np.float32) / 255.0
     diff = np.abs(np.clip(frame.numpy(), 0, 1) - want[..., :3])
     assert float(diff.mean()) < 2e-3, f"mean diff {diff.mean()}"
+    assert float((diff.max(-1) > 0.05).mean()) < 2e-3, "pixels drifted"
+    assert state.history.dtype == torch.float16
+
+
+@pytest.mark.parametrize("traversal", ["pallas4", "pallas"])
+def test_default_golden(traversal):
+    """The default frame's golden (tests/test_torch_renderer.py's bar)
+    through the per-mesh traversals, as chip_smoke.py checks it on the
+    card."""
+    from PIL import Image
+
+    r = Renderer(_scene(), config=RenderConfig(width=W, height=H,
+                                               traversal=traversal),
+                 device="cpu")
+    state, frame = r.run_frames(FRAMES)
+    want = np.asarray(Image.open(GOLDEN), np.float32) / 255.0
+    diff = np.abs(np.clip(frame.numpy(), 0, 1) - want[..., :3])
+    assert float(diff.mean()) < 3e-3, f"mean diff {diff.mean()}"
     assert float((diff.max(-1) > 0.05).mean()) < 2e-3, "pixels drifted"
     assert state.history.dtype == torch.float16
 
