@@ -160,6 +160,32 @@ def test_trace_hook_sees_each_k1_wave():
     assert torch.equal(refit_scene_wide(r.swide, worlds).nodes, sw.nodes)
 
 
+@pytest.mark.parametrize("empty", [0, 1, 2, 3])
+def test_kprofile_profiles_again_a_window_missing_the_kernel(monkeypatch,
+                                                            empty):
+    """kprofile.kernel_ms profiles a window again when it recorded none of
+    the kernel's launches, up to three windows, and then raises."""
+    from raytracedggx_tpu_torch.scripts import kprofile
+
+    windows = []
+
+    def profiled(fn, n):
+        windows.append(n)
+        found = len(windows) > empty
+        return ([("other_kernel", 0.0, 9.0)]
+                + [("trace_flat_pairs_kernel", 0.0, 2000.0 * k)
+                   for k in (1, 2, 3) if found], 1.0)
+
+    monkeypatch.setattr(kprofile, "profiled", profiled)
+    keys = kprofile.KERNELS["K4"]
+    if empty == 3:
+        with pytest.raises(RuntimeError, match="no device time"):
+            kprofile.kernel_ms(None, keys, 5)
+    else:
+        assert kprofile.kernel_ms(None, keys, 5) == (4.0, 3)
+    assert windows == [5] * min(empty + 1, 3)
+
+
 @pytest.mark.parametrize("motion", [0.004, 0.2])   # tent / gather branch
 def test_temporal_and_tonemap_match_reference(rng, motion):
     cur = rng.random((H, W, 4)).astype(np.float32) * 2
