@@ -21,6 +21,13 @@ from raytracedggx_tpu_torch.utils.halton import halton_table
 ATOL = 1e-6
 
 
+@pytest.fixture
+def rng():
+    """A fresh generator per test: the session-wide one's draws depend on
+    which files ran before in the same worker process."""
+    return np.random.default_rng(1234)
+
+
 def _t(x):
     return torch.as_tensor(np.asarray(x))
 
