@@ -51,8 +51,8 @@
 //     best_t has since passed costs no load.  The TPU's DFS order, with
 //     the same loads and prefetch, kept testing far subtrees its best t
 //     had not yet ruled out: 1.3-1.4x this walk's time and 1.1-1.2x its
-//     box tests, 1.3-1.8x its triangle tests on the frame's waves
-//     (PERF.md, PR 6);
+//     box tests, 1.3-1.8x its triangle tests on the frame's waves on an
+//     H100 (PERF.md);
 //   * a leaf prefetch: triangle j + 1's loads go out before triangle j is
 //     tested, so a leaf costs about one round trip, not one per triangle;
 //   * the stack in shared memory, [entry][thread] so that the 32 threads

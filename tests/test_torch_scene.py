@@ -23,8 +23,8 @@ ATOL = 1e-6
 
 @pytest.fixture
 def rng():
-    """A fresh generator per test: the session-wide one's draws depend on
-    which files ran before in the same worker process."""
+    """A fresh generator per test: the draws of conftest's shared one
+    depend on which files ran before in the same worker process."""
     return np.random.default_rng(1234)
 
 
