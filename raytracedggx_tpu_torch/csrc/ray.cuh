@@ -1,6 +1,6 @@
-// Ray set-up, slab test and Moller-Trumbore test shared by the traversal
-// kernels K1 (traverse.cu), K4 (traverse_flat.cu) and K5
-// (traverse_wide4.cu).  Each function takes its operands as values, which
+// Ray set-up, slab test, Moller-Trumbore test, leaf walk and stats shared
+// by the traversal kernels K1 (traverse.cu), K4 (traverse_flat.cu) and K5
+// (traverse_wide4.cu).  Each test takes its operands as values, which
 // the kernels read as float4.  The comparisons are those of the TPU
 // kernels, so hits and exact-t ties resolve as there; no fast math,
 // because empty boxes (lo = +inf, hi = -inf), NaN padding and degenerate
@@ -121,6 +121,57 @@ __device__ __forceinline__ bool tri_hit(float v0x, float v0y, float v0z,
     return true;
   }
   return false;
+}
+
+// The triangles [a, end) of a leaf in stream order, each v0 _ e1 _ e2 _ as
+// three float4 of tris; triangle j + 1's loads go out before triangle j is
+// tested, so a leaf costs about one round trip.  A hit is taken on
+// t < best_t; of two at an equal t, by_pos takes the later stream
+// position (the TPU's result in any visit order), otherwise the later one
+// tested.
+template <bool by_pos>
+__device__ __forceinline__ void leaf_hit(const float4* __restrict__ tris,
+                                         int a, int end, const Ray& ray,
+                                         float t_min, float& best_t,
+                                         float& best_u, float& best_v,
+                                         int& best_pos) {
+  const float4* __restrict__ tr = tris + (size_t)a * 3;
+  float4 v0 = __ldg(tr), e1 = __ldg(tr + 1), e2 = __ldg(tr + 2);
+  for (int j = a; j < end; ++j) {
+    float4 nv0 = v0, ne1 = e1, ne2 = e2;
+    if (j + 1 < end) {
+      tr += 3;
+      nv0 = __ldg(tr);
+      ne1 = __ldg(tr + 1);
+      ne2 = __ldg(tr + 2);
+    }
+    float t, u, v;
+    if (tri_uvt(v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x, e2.y, e2.z, ray,
+                t_min, t, u, v) &&
+        (by_pos ? t < best_t || (t == best_t && j > best_pos) : t <= best_t)) {
+      best_t = t;
+      best_u = u;
+      best_v = v;
+      best_pos = j;
+    }
+    v0 = nv0;
+    e1 = ne1;
+    e2 = ne2;
+  }
+}
+
+// Adds a thread's box and triangle tests to stats (2 int64, or null for
+// none), summed over the warp first: one pair of atomics per warp.  Every
+// thread of the warp must make the call.
+__device__ __forceinline__ void add_stats(unsigned long long* __restrict__ stats,
+                                          unsigned n_box, unsigned n_tri) {
+  if (stats == nullptr) return;
+  n_box = __reduce_add_sync(0xFFFFFFFFu, n_box);
+  n_tri = __reduce_add_sync(0xFFFFFFFFu, n_tri);
+  if ((threadIdx.x & 31) == 0) {
+    atomicAdd(stats, (unsigned long long)n_box);
+    atomicAdd(stats + 1, (unsigned long long)n_tri);
+  }
 }
 
 }  // namespace rtggx

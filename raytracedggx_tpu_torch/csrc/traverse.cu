@@ -88,10 +88,6 @@ __device__ __forceinline__ void exchange(float& ka, int& va, float& kb,
   }
 }
 
-__device__ __forceinline__ unsigned warp_sum(unsigned x) {
-  return __reduce_add_sync(0xFFFFFFFFu, x);
-}
-
 __global__ void __launch_bounds__(K1_THREADS)
 trace_instanced_kernel(const float4* __restrict__ nodes,
                        const float4* __restrict__ tris,
@@ -215,14 +211,7 @@ trace_instanced_kernel(const float4* __restrict__ nodes,
     out_slot[r] = best_slot;
     out_inst[r] = best_inst;
   }
-  if (stats != nullptr) {  // uniform: every thread of the warp is here
-    n_box = warp_sum(n_box);
-    n_tri = warp_sum(n_tri);
-    if ((threadIdx.x & 31) == 0) {
-      atomicAdd(stats, (unsigned long long)n_box);
-      atomicAdd(stats + 1, (unsigned long long)n_tri);
-    }
-  }
+  rtggx::add_stats(stats, n_box, n_tri);  // every thread of the warp is here
 }
 
 }  // namespace

@@ -69,42 +69,6 @@
 
 namespace {
 
-__device__ __forceinline__ unsigned warp_sum(unsigned x) {
-  return __reduce_add_sync(0xFFFFFFFFu, x);
-}
-
-// The triangles [a, end) of a leaf; the next triangle's loads go out
-// before this one's test.
-__device__ __forceinline__ void leaf_hit(const float4* __restrict__ tris,
-                                         int a, int end, const rtggx::Ray& ray,
-                                         float t_min, float& best_t,
-                                         float& best_u, float& best_v,
-                                         int& best_pos) {
-  const float4* __restrict__ tr = tris + (size_t)a * 3;
-  float4 v0 = __ldg(tr), e1 = __ldg(tr + 1), e2 = __ldg(tr + 2);
-  for (int j = a; j < end; ++j) {
-    float4 nv0 = v0, ne1 = e1, ne2 = e2;
-    if (j + 1 < end) {
-      tr += 3;
-      nv0 = __ldg(tr);
-      ne1 = __ldg(tr + 1);
-      ne2 = __ldg(tr + 2);
-    }
-    float t, u, v;
-    if (rtggx::tri_uvt(v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x, e2.y, e2.z,
-                       ray, t_min, t, u, v) &&
-        (t < best_t || (t == best_t && j > best_pos))) {
-      best_t = t;
-      best_u = u;
-      best_v = v;
-      best_pos = j;
-    }
-    v0 = nv0;
-    e1 = ne1;
-    e2 = ne2;
-  }
-}
-
 __global__ void __launch_bounds__(K4_THREADS)
 trace_flat_pairs_kernel(const float4* __restrict__ pairs,
                         const float4* __restrict__ tris,
@@ -155,13 +119,13 @@ trace_flat_pairs_kernel(const float4* __restrict__ pairs,
         }
         if (h0 && c0 > 0) {  // hit leaves now, nearer first
           n_tri += c0;
-          leaf_hit(tris, a0, a0 + c0, ray, t_min, best_t, best_u, best_v,
-                   best_pos);
+          rtggx::leaf_hit<true>(tris, a0, a0 + c0, ray, t_min, best_t, best_u,
+                                best_v, best_pos);
         }
         if (h1 && c1 > 0 && tn1 <= best_t) {
           n_tri += c1;
-          leaf_hit(tris, a1, a1 + c1, ray, t_min, best_t, best_u, best_v,
-                   best_pos);
+          rtggx::leaf_hit<true>(tris, a1, a1 + c1, ray, t_min, best_t, best_u,
+                                best_v, best_pos);
         }
         const bool in0 = h0 && c0 == 0 && tn0 <= best_t;
         const bool in1 = h1 && c1 == 0 && tn1 <= best_t;
@@ -195,14 +159,7 @@ trace_flat_pairs_kernel(const float4* __restrict__ pairs,
     out_v[r] = best_v;
     out_pos[r] = best_pos;
   }
-  if (stats != nullptr) {  // uniform: every thread of the warp is here
-    n_box = warp_sum(n_box);
-    n_tri = warp_sum(n_tri);
-    if ((threadIdx.x & 31) == 0) {
-      atomicAdd(stats, (unsigned long long)n_box);
-      atomicAdd(stats + 1, (unsigned long long)n_tri);
-    }
-  }
+  rtggx::add_stats(stats, n_box, n_tri);  // every thread of the warp is here
 }
 
 }  // namespace

@@ -74,10 +74,6 @@ __device__ __forceinline__ float lane(const float4& v, int k) {
   return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
 }
 
-__device__ __forceinline__ unsigned warp_sum(unsigned x) {
-  return __reduce_add_sync(0xFFFFFFFFu, x);
-}
-
 // one exchange of the sorting network: descending keys
 __device__ __forceinline__ void exchange(float& ka, int& va, float& kb,
                                          int& vb) {
@@ -103,32 +99,6 @@ __device__ __forceinline__ bool child_hit(const float4 (&b)[6], int k,
                         lane(b[(6 * k + 4) / 4], (6 * k + 4) % 4),
                         lane(b[(6 * k + 5) / 4], (6 * k + 5) % 4), ray, t_min,
                         best_t, tn);
-}
-
-// The triangles [a, end) of a leaf in stream order; the next triangle's
-// loads go out before this one's test.
-__device__ __forceinline__ void leaf_hit(const float4* __restrict__ tris,
-                                         int a, int end, const rtggx::Ray& ray,
-                                         float t_min, float& best_t,
-                                         float& best_u, float& best_v,
-                                         int& best_pos) {
-  const float4* __restrict__ tr = tris + (size_t)a * 3;
-  float4 v0 = __ldg(tr), e1 = __ldg(tr + 1), e2 = __ldg(tr + 2);
-  for (int j = a; j < end; ++j) {
-    float4 nv0 = v0, ne1 = e1, ne2 = e2;
-    if (j + 1 < end) {
-      tr += 3;
-      nv0 = __ldg(tr);
-      ne1 = __ldg(tr + 1);
-      ne2 = __ldg(tr + 2);
-    }
-    if (rtggx::tri_hit(v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x, e2.y, e2.z,
-                       ray, t_min, best_t, best_u, best_v))
-      best_pos = j;
-    v0 = nv0;
-    e1 = ne1;
-    e2 = ne2;
-  }
 }
 
 __global__ void __launch_bounds__(K5_THREADS)
@@ -176,7 +146,8 @@ trace_wide4_kernel(const float4* __restrict__ nodes,
           if (hit[k] && kind == 1 && tn[k] <= best_t) {
             const int a = (int)lane(addrs, k), end = a + (int)lane(counts, k);
             n_tri += end - a;
-            leaf_hit(tris, a, end, ray, t_min, best_t, best_u, best_v, best_pos);
+            rtggx::leaf_hit<false>(tris, a, end, ray, t_min, best_t, best_u,
+                                   best_v, best_pos);
           }
         }
         float key[4];
@@ -205,14 +176,7 @@ trace_wide4_kernel(const float4* __restrict__ nodes,
     out_v[r] = best_v;
     out_pos[r] = best_pos;
   }
-  if (stats != nullptr) {  // uniform: every thread of the warp is here
-    n_box = warp_sum(n_box);
-    n_tri = warp_sum(n_tri);
-    if ((threadIdx.x & 31) == 0) {
-      atomicAdd(stats, (unsigned long long)n_box);
-      atomicAdd(stats + 1, (unsigned long long)n_tri);
-    }
-  }
+  rtggx::add_stats(stats, n_box, n_tri);  // every thread of the warp is here
 }
 
 }  // namespace
