@@ -117,12 +117,12 @@ def launch_ms(events, keys):
     return statistics.median(b - a for _, a, b in ev) / 1e3, len(ev)
 
 
-def kernel_ms(fn, keys, n, windows=3):
+def kernel_ms(fn, keys, n):
     """Median device ms per launch of the kernel named like one of
     ``keys`` over n runs of fn().  A profiled window now and then records
-    none of the kernel's launches; it is profiled again, up to
-    ``windows`` windows in all."""
-    for _ in range(windows - 1):
+    none of the kernel's launches; it is profiled again, up to three
+    windows in all."""
+    for _ in range(2):
         events = profiled(fn, n)[0]
         if any(named(name, keys) for name, _, _ in events):
             return launch_ms(events, keys)
