@@ -7,7 +7,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
  0. the machine: nvidia-smi name and power limit, torch/CUDA/nvcc versions;
  1. build the CUDA kernels from csrc/ (one nvcc per source, sm_90a) and
     load them; print ptxas's registers, stack frame and spills of every
-    kernel, and fail if K4 or K5 has a stack frame or spills;
+    kernel, and fail if K4, K5, K7 or an instance of K6a has a stack frame
+    or spills;
  2. the scene: ground cube + a deterministic ~82k-triangle displaced
     icosphere standing in for the bunny; its instanced scene BVH (the
     renderer's leaf size, 8) for traversal="wide" and its per-mesh trees
@@ -33,10 +34,14 @@ Phases (each prints its own lines; any failure ends the run non-zero):
  6. the kernel lab: the kbench port's ray sets at 1280x720 over the model
     scene's trees (leaf 8, 16, 32, 64); for each of 15 variants covering
     every flag, K6a / K6b / K7 against its plain version on 16,384 rays
-    (hits, per-ray visit counts, stack depth, times, bound), then, with
-    the lab's launch counts set to 0 just before and read just after,
-    kbench's own run of those variants on both full sets with its gate
-    against K1.
+    (hits, per-ray visit counts, the deepest stack against the walk's
+    bound, times, bound), then, with the lab's launch counts set to 0 just
+    before and read just after, kbench's own run of those variants on both
+    full sets with its gate against K1; then K7 and K1 on kbench's
+    reflection set from t_min 0, where every ray on which they differ
+    beyond the gate must have its nearer t below kbench's t_min (a re-hit
+    of the ray's own start triangle); last, the bound of each JSON row's
+    lab variant on kbench's two full sets.
 The second-to-last line is a JSON summary of the kernels (launches on
 their path, parity error, kernel / plain times, the bound; K1's, K4's and
 K5's times are of the full primary wave, K2's and K3's of the row pass);
@@ -121,38 +126,22 @@ def machine():
 
 
 # ---------------------------------------------------------------- phase 1
-def ptxas_reports(log):
-    """{mangled kernel name: (registers, stack frame bytes, spill store
-    bytes, spill load bytes)} from nvcc's -Xptxas=-v log."""
-    out, name, frame = {}, None, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            name = line.split("'")[1]
-        elif "bytes stack frame" in line:
-            frame = [int(w) for w in line.replace(",", " ").split()
-                     if w.isdigit()]
-        elif "Used" in line and "registers" in line and name:
-            regs = int(line.split("Used")[1].split()[0])
-            out[name] = (regs, *frame)
-            name = None
-    return out
-
-
 def build_kernels():
     from raytracedggx_tpu_torch.ops import cuda_lib
 
     path, log, secs = cuda_lib.build()
     cuda_lib.load_library()
     print(f"built {os.path.relpath(path, ROOT)} in {secs:.3f} s")
-    reports = ptxas_reports(log)
+    reports = cuda_lib.ptxas_reports(log)
     for name, (regs, frame, st, ld) in reports.items():
         print(f"  ptxas {name}: {regs} registers, {frame} bytes stack "
               f"frame, {st} / {ld} bytes spill stores / loads")
-    for k, key in (("K4", "trace_flat_pairs_kernel"),
-                   ("K5", "trace_wide4_kernel")):
+    for k, key, n in (("K4", "trace_flat_pairs_kernel", 1),
+                      ("K5", "trace_wide4_kernel", 1),
+                      ("K6a", "lab_kernel", 6), ("K7", "mxu_kernel", 1)):
         rows = [r for name, r in reports.items() if key in name]
-        check(len(rows) == 1 and rows[0][1:] == (0, 0, 0),
-              f"{k}: no stack frame and no spills")
+        check(len(rows) == n and all(r[1:] == (0, 0, 0) for r in rows),
+              f"{k}: {n} instance(s), no stack frame and no spills")
     return secs
 
 
@@ -600,7 +589,7 @@ def lab_check(bench, name, kw, o, d, t_max):
 
     kernel = kernel_of(kw)
     label = f"{kernel} {name}"
-    s, L = bench.variant_tree(kw)
+    s, _ = bench.variant_tree(kw)
     ref, plain_ms = timed_once(lambda: bench.plain(kw, o, d, t_max,
                                                    T_MIN_REFL))
     lab = kernel != "K7"
@@ -617,17 +606,7 @@ def lab_check(bench, name, kw, o, d, t_max):
         depth, cap = int(ref[6][:, 2].max()), bench.stack(s, kw)
         check(depth < cap, f"{label}: deepest stack {depth} < {cap}, no "
               f"push dropped")
-    totals = torch.zeros(2, dtype=torch.int64, device=o.device)
-    bench.launch(kw, o, d, t_max, totals=totals, t_min=T_MIN_REFL)
-    if lab:
-        inputs = (s.nodes, s.tris, s.attrs, bench.boxes(s, kw), s.inv_mats,
-                  o, d, t_max)
-        out_bytes, tri_ops = 32 + (8 if kw.get("stats") else 0), TRI_OPS
-    else:
-        inputs = (s.nodes, bench.coef(s, L), s.inv_mats, o, d, t_max)
-        out_bytes, tri_ops = 20, SLOT_OPS_MXU
-    bound_ms, bound_by = trace_bound(inputs, o.shape[0], out_bytes, totals,
-                                     tri_ops)
+    bound_ms, bound_by = lab_bound(bench, kw, o, d, t_max, T_MIN_REFL)
     ms = cuda_ms(lambda: bench.launch(kw, o, d, t_max,
                                      t_min=T_MIN_REFL), 20)
     print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
@@ -635,18 +614,41 @@ def lab_check(bench, name, kw, o, d, t_max):
                 bound_by=bound_by)
 
 
+def lab_bound(bench, kw, o, d, t_max, t_min):
+    """The bound of one launch of a kernel-lab variant on rays (o, d,
+    t_max) from t_min: its inputs read once, its outputs written once, and
+    the box and triangle (K7: slot) tests it counts on these rays."""
+    from raytracedggx_tpu_torch.scripts.kbench import kernel_of
+
+    s, L = bench.variant_tree(kw)
+    totals = torch.zeros(2, dtype=torch.int64, device=o.device)
+    bench.launch(kw, o, d, t_max, totals=totals, t_min=t_min)
+    if kernel_of(kw) != "K7":
+        inputs = (s.nodes, s.tris, s.attrs, bench.boxes(s, kw), s.inv_mats,
+                  o, d, t_max)
+        out_bytes, tri_ops = 32 + (8 if kw.get("stats") else 0), TRI_OPS
+    else:
+        inputs = (s.nodes, bench.coef(s, L), s.inv_mats, o, d, t_max)
+        out_bytes, tri_ops = 20, SLOT_OPS_MXU
+    return trace_bound(inputs, o.shape[0], out_bytes, totals, tri_ops)
+
+
 def kernel_lab(dev, rng, card):
     """Phase 6.  Returns ({K6a, K6b, K7: row of the JSON line}, launches
     of K6a, K6b and K7 over kbench's run)."""
-    from raytracedggx_tpu_torch.scripts.kbench import (VARIANT_KW, Bench,
+    from raytracedggx_tpu_torch.ops.lab.fused_lab import stack_bound
+    from raytracedggx_tpu_torch.scripts.kbench import (T_MIN_REFL,
+                                                       VARIANT_KW, Bench,
                                                        kernel_of)
 
     t0 = time.perf_counter()
     bench = Bench(dev, W, H)
-    for leaf in (16, 32, 64):
+    for leaf in (8, 16, 32, 64):
         s = bench.tree(leaf)
-        print(f"  leaf {leaf}: {s.num_nodes} nodes, stack {s.stack}, K1 "
-              f"stack bound {s.k1_stack}")
+        print(f"  leaf {leaf}: {s.num_nodes} nodes, depth {s.depth}, "
+              f"reference stack {s.stack}, K1 stack bound {s.k1_stack}, "
+              f"lab walk bound at npop 1 / 2 / 4 "
+              f"{[stack_bound(s.depth, p) for p in (1, 2, 4)]}")
     torch.cuda.synchronize()
     print(f"  kbench sets at {W}x{H}: primary {bench.o_p.shape[0]}, "
           f"reflection live {int((bench.t_r > 0).sum())}; set-up "
@@ -684,7 +686,53 @@ def kernel_lab(dev, rng, card):
     counts = [fn.launches for fn in fns]
     check(all(n > 0 for n in counts), f"kernel lab: launches K6a/K6b/K7 "
           f"{counts} over kbench's run, each > 0")
+    for name in ("mxu32", "mxu16"):
+        t_min_zero_check(bench, name)
+    # the bound of each row's variant on kbench's full sets, beside the
+    # times kbench printed for them above
+    for k, name in LAB_ROWS.items():
+        for label, o, d, t_max, t_min in (
+                ("primary", bench.o_p, bench.d_p, bench.t_p, 0.0),
+                ("reflection", bench.o_r, bench.d_r, bench.t_r, T_MIN_REFL)):
+            bound_ms, bound_by = lab_bound(bench, VARIANT_KW[name], o, d,
+                                           t_max, t_min)
+            print(f"  {k} {name} on the full {label} set: bound "
+                  f"{bound_ms:.6f} ms ({bound_by})")
     return rows, counts
+
+
+def t_min_zero_check(bench, name):
+    """K7 (variant ``name``) and K1 on the variant's tree over kbench's
+    reflection set from t_min 0: the rays on which they differ beyond
+    kbench's gate, each of which must have its nearer t below kbench's
+    T_MIN_REFL (a re-hit of the surface the ray starts on)."""
+    from raytracedggx_tpu_torch.ops.fused import trace_tiles_instanced
+    from raytracedggx_tpu_torch.scripts.kbench import (PARITY_BAR,
+                                                       T_MIN_REFL,
+                                                       VARIANT_KW)
+
+    kw = VARIANT_KW[name]
+    s, L = bench.variant_tree(kw)
+    o, d, t_max = bench.o_r, bench.d_r, bench.t_r
+    t7 = bench.launch(kw, o, d, t_max, t_min=0.0)[0]
+    t1 = trace_tiles_instanced(s.nodes, s.tris4, s.inv_mats, s.inst_slots,
+                               o, d, 0.0, t_max, L, s.k1_stack)[0]
+    err = (t7 - t1).abs()
+    gap = torch.minimum(err, err / torch.clamp(t1.abs(), min=1e-3))
+    over = torch.nonzero(~(gap <= PARITY_BAR))[:, 0]
+    near = torch.minimum(t7, t1)[over]
+    k7_near = int((t7[over] < t1[over]).sum())
+    print(f"  {name} against K1 from t_min 0: {over.numel()} of "
+          f"{int((t_max >= 0).sum())} live reflection rays differ beyond "
+          f"{PARITY_BAR:g}, the nearer t K7's on {k7_near} and K1's on "
+          f"{over.numel() - k7_near}; nearer t at most "
+          f"{float(near.max()) if near.numel() else 0.0:.6g}, "
+          f"{int((near == 0).sum())} of them at t = 0")
+    for i in over[~(near < T_MIN_REFL)][:8].tolist():
+        print(f"    ray {i}: K7 t {float(t7[i]):.6g}, K1 t {float(t1[i]):.6g}")
+    check(bool((near < T_MIN_REFL).all()), f"{name}: every ray where K7 "
+          f"and K1 differ from t_min 0 has its nearer t below "
+          f"{T_MIN_REFL:g} (a self-hit)")
 
 
 # ---------------------------------------------------------------- main

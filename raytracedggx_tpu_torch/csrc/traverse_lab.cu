@@ -6,9 +6,10 @@
 // (K6a) and :_ls_kernel (K6b), launched by trace_tiles_lab.
 //
 // Contract (layouts as K1, csrc/traverse.cu):
-//   * nodes (N, 36) f32 rows; tris (S, 9) f32 slots v0 e1 e2, leaf j owns
-//     slots [j*L, (j+1)*L), pads carry v0 = NaN; attrs (S, 10) f32 n0 n1 n2
-//     prim per slot; inv_mats (1+I, 12) inverse worlds, tag 0 the identity.
+//   * nodes (N, 36) f32 rows, read as nine float4 (16-byte aligned); tris4
+//     (S, 12) f32 slots, three float4 v0 _ e1 _ e2 _, leaf j owns slots
+//     [j*L, (j+1)*L), pads carry v0 = NaN; attrs (S, 10) f32 n0 n1 n2 prim
+//     per slot; inv_mats (1+I, 12) inverse worlds, tag 0 the identity.
 //   * stack entries pack node | tag << 20 (K6b adds bit 30 for a leaf and
 //     reads a 10-bit tag).  Rays go to object space on a tag change with
 //     the direction unnormalised, so t stays in world units.
@@ -27,7 +28,7 @@
 //     (fat: w0*n0 + u*n1 + v*n2 of the winner's attrs, resolved once after
 //     the walk; lean: 0), prim = attrs[slot, 9] (sub: the stream slot) and
 //     inst = tag - 1 (noinst: 0), both int32 and -1 on a miss.  Rays with
-//     t_max < 0 return at once.
+//     t_max < 0 do not traverse.
 //   * counts (null, or (R, 2) int32): node visits and leaf visits of each
 //     ray; totals (null, or 2 int64): box tests (child and sub boxes) and
 //     triangle tests, summed.
@@ -35,25 +36,37 @@
 //     leaf mode lean / fat / sub, and the K6b kernel); the others are
 //     uniform runtime flags: ORDERED, FOLD, PRE (a (tags, R, 9) table of
 //     o*M+t | d*M | 1/(d*M) read on a tag switch in place of the transform),
-//     SLIM, NOINST, SMEM (the first LAB_SMEM_ROWS node rows staged in
-//     shared memory per block: in node order these are the top tree and
-//     each mesh's root with the first nodes of its preorder).
+//     SLIM, NOINST; smem_rows > 0 stages the first node rows in shared
+//     memory per block (in node order these are the top tree and each
+//     mesh's root with the first nodes of its preorder).
 //
 // What bounds it on this card: as K1, the latency of dependent loads per
-// ray (a node row, then a leaf's 9*L floats), not bytes or FLOPs.  The TPU
+// ray (a node row, then a leaf's slots), not bytes or FLOPs.  The TPU
 // kernel walked a 1024-ray packet over one shared stack, so its counters
-// were per packet; here each thread owns one ray, its own stack in local
-// memory (L1-resident) and its own counters, and coherence within a warp
-// comes from the caller's ray order.  The lab flags were answers to TPU
-// costs (vector-to-scalar extracts, masked lane reductions, SMEM scalars);
-// on this card they are re-priced as what they become per thread.
+// were per packet; here each thread owns one ray and its own counters,
+// and coherence within a warp comes from the caller's ray order.  The lab
+// prices each flag against K1, so K6a carries K1's memory design and the
+// walk stays the lab's (the two-pop order is its subject):
+//   * the stack in shared memory, [entry][thread], sized at launch from
+//     the walk's bound npop * (3 * depth - 2) (derived in lab.cuh) beside
+//     the staged rows; the pushes of the popped nodes wait in registers,
+//     so no array is indexed at run time in local memory (the first port
+//     kept a 512-entry stack, 2 KB of local memory per thread);
+//   * a node is nine 16-byte loads, from the staged rows or device memory;
+//     a slot three float4 of tris4, slot j + 1's loads out before slot j is
+//     tested, and the NaN v0 already loaded ends the leaf;
+//   * totals summed over the warp first, one pair of atomics per warp.
+// The lab flags were answers to TPU costs (vector-to-scalar extracts,
+// masked lane reductions, SMEM scalars); on this card they are re-priced
+// as what they become per thread.  K6b shares the leaf test, the node
+// loads and the totals; its own walk keeps a per-thread stack in local
+// memory.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 #include "lab.cuh"
 
-#define LAB_SMEM_ROWS 256
 #define LAB_LEAF_BIT (1 << 30)
 
 enum LabFlag : int {
@@ -65,14 +78,13 @@ enum LabFlag : int {
   LAB_RECIP = 32,
   LAB_FAT = 64,
   LAB_LEAF_STACK = 128,
-  LAB_SMEM = 256,
 };
 
 namespace {
 
 struct LabArgs {
-  const float* nodes;
-  const float* tris;
+  const float4* nodes;
+  const float4* tris4;
   const float* attrs;
   const float* boxes;
   const float* inv_mats;
@@ -118,9 +130,7 @@ __device__ __forceinline__ rtggx::Ray lab_ray(const LabArgs& a, int tag, int r) 
 template <bool RECIP, int MODE>
 __device__ __forceinline__ void lab_leaf(const LabArgs& a, int lf, int tag,
                                          const rtggx::Ray& ro, Best& b,
-                                         unsigned long long& n_box,
-                                         unsigned long long& n_tri) {
-  const float* __restrict__ leaf = a.tris + (size_t)lf * a.L * 9;
+                                         unsigned& n_box, unsigned& n_tri) {
   int q1 = 1, lq = a.L;
   unsigned live = 1u;
   if (MODE == 2) {
@@ -129,74 +139,56 @@ __device__ __forceinline__ void lab_leaf(const LabArgs& a, int lf, int tag,
     q1 = a.nq;
     lq = a.L / a.nq;
     live = 0u;
-    for (int q = 0; q < a.nq; ++q) {
+    for (int q = 0; q < a.nq; ++q, bx += 6) {
       float tn;
       ++n_box;
-      if (rtggx::slab(bx + 6 * q, ro, a.t_min, bt0, false, tn)) live |= 1u << q;
+      if (rtggx::box_hit(__ldg(bx), __ldg(bx + 1), __ldg(bx + 2),
+                         __ldg(bx + 3), __ldg(bx + 4), __ldg(bx + 5), ro,
+                         a.t_min, bt0, tn))
+        live |= 1u << q;
     }
   }
   for (int q = 0; q < q1; ++q) {
     if (!((live >> q) & 1u)) continue;
-    for (int j = q * lq; j < (q + 1) * lq; ++j) {
-      const float* tr = leaf + 9 * j;
+    const int j0 = lf * a.L + q * lq, j1 = j0 + lq;
+    const float4* __restrict__ tr = a.tris4 + (size_t)j0 * 3;
+    float4 v0 = __ldg(tr), e1 = __ldg(tr + 1), e2 = __ldg(tr + 2);
+    for (int j = j0; j < j1; ++j) {
       // pads follow a leaf's real triangles: the first one ends the chunk
-      if (isnan(__ldg(tr))) break;
+      if (isnan(v0.x)) break;
       ++n_tri;
-      if (rtggx::mt_hit<RECIP>(tr, ro, a.t_min, b.t, b.u, b.v)) {
-        b.slot = lf * a.L + j;
+      // the next slot's loads go out before this slot's test
+      float4 nv0 = v0, ne1 = e1, ne2 = e2;
+      if (j + 1 < j1) {
+        tr += 3;
+        nv0 = __ldg(tr);
+        ne1 = __ldg(tr + 1);
+        ne2 = __ldg(tr + 2);
+      }
+      if (rtggx::mt_hit<RECIP>(v0, e1, e2, ro, a.t_min, b.t, b.u, b.v)) {
+        b.slot = j;
         b.inst = tag - 1;
       }
+      v0 = nv0;
+      e1 = ne1;
+      e2 = ne2;
     }
   }
 }
 
 // Stage the first smem_rows node rows in shared memory.  Every thread of
-// the block reaches the barrier (no thread has returned yet).
-__device__ __forceinline__ void stage_nodes(const LabArgs& a, float* s_nodes) {
-  for (int i = threadIdx.x; i < a.smem_rows * 36; i += blockDim.x)
-    s_nodes[i] = __ldg(a.nodes + i);
+// the block reaches the barrier.
+__device__ __forceinline__ void stage_nodes(const LabArgs& a, float4* s_rows) {
+  for (int i = threadIdx.x; i < a.smem_rows * 9; i += blockDim.x)
+    s_rows[i] = __ldg(a.nodes + i);
   if (a.smem_rows > 0) __syncthreads();
-}
-
-__device__ __forceinline__ const float* node_row(const LabArgs& a,
-                                                 const float* s_nodes,
-                                                 int idx) {
-  return idx < a.smem_rows ? s_nodes + idx * 36 : a.nodes + (size_t)idx * 36;
-}
-
-// Box tests of one node's children against best_t = bt: fills the child
-// entries, their push flags and sort keys; returns the hit mask.
-__device__ __forceinline__ unsigned node_children(
-    const LabArgs& a, const float* row, const rtggx::Ray& ro, int tag,
-    float bt, bool fold, bool ordered, int leaf_bit, int* kind, int* child,
-    float* key, int* ent, bool* push, unsigned long long& n_box) {
-  unsigned hit = 0u;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    kind[k] = (int)row[24 + k];
-    child[k] = (int)row[28 + k];
-    float tn = 0.0f;
-    bool h = false;
-    if (kind[k] != 0) {
-      ++n_box;
-      h = rtggx::slab(row + 6 * k, ro, a.t_min, bt, fold, tn);
-    }
-    hit |= (unsigned)h << k;
-    const int child_tag = kind[k] == 3 ? (int)row[32 + k] : tag;
-    ent[k] = child[k] | (child_tag << LAB_TAG_SHIFT) |
-             (kind[k] == 1 ? leaf_bit : 0);
-    push[k] = h && kind[k] >= (leaf_bit ? 1 : 2);
-    key[k] = ordered ? (push[k] ? tn : -CUDART_INF_F) : 0.0f;
-  }
-  return hit;
 }
 
 template <int MODE>
 __device__ __forceinline__ void write_out(const LabArgs& a, int r,
                                           const Best& b, bool slim,
-                                          bool noinst, int n_node, int n_leaf,
-                                          unsigned long long n_box,
-                                          unsigned long long n_tri) {
+                                          bool noinst, int n_node,
+                                          int n_leaf) {
   const bool hit = b.slot >= 0;
   float nx = 0.0f, ny = 0.0f, nz = 0.0f;
   int prim = -1;
@@ -222,148 +214,158 @@ __device__ __forceinline__ void write_out(const LabArgs& a, int r,
     a.counts[2 * r] = n_node;
     a.counts[2 * r + 1] = n_leaf;
   }
-  if (a.totals != nullptr && (n_box | n_tri) != 0) {
-    atomicAdd(a.totals, n_box);
-    atomicAdd(a.totals + 1, n_tri);
-  }
 }
 
-// K6a: _lab_kernel.
+// K6a: _lab_kernel.  Dynamic shared memory: smem_rows node rows, then
+// stack_size entries per thread.
 template <bool RECIP, int MODE>
 __global__ void __launch_bounds__(512) lab_kernel(const LabArgs a) {
-  extern __shared__ float s_nodes[];
-  stage_nodes(a, s_nodes);
+  extern __shared__ float4 lab_smem[];
+  stage_nodes(a, lab_smem);
+  rtggx::SmemStack stack(reinterpret_cast<int*>(lab_smem + a.smem_rows * 9),
+                         a.stack_size);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= a.n_rays) return;
-  const bool ordered = a.flags & LAB_ORDERED, fold = a.flags & LAB_FOLD;
-  Best b{a.t_max[r], 0.0f, 0.0f, -1, -1};
-  int n_node = 0, n_leaf = 0;
-  unsigned long long n_box = 0, n_tri = 0;
+  unsigned n_box = 0, n_tri = 0;
 
-  if (b.t >= 0.0f) {  // t_max < 0: dead ray, no traversal
-    int stack[LAB_MAX_STACK];
-    int sp = 0;
-    stack[sp++] = 0;  // root of the top tree, tag 0
-    int cur_tag = -1;
-    rtggx::Ray ro;
-    while (sp > 0) {
-      const int top = sp;
-      const int n = min(a.npop, top);
-      sp -= n;
-      int pend[4][4], pcnt[4];
-      for (int p = 0; p < n; ++p) {
-        const int e = stack[top - 1 - p];
-        const int idx = e & LAB_NODE_MASK, tag = e >> LAB_TAG_SHIFT;
-        if (tag != cur_tag) {
-          ro = lab_ray(a, tag, r);
-          cur_tag = tag;
-        }
-        ++n_node;
-        int kind[4], child[4], ent[4];
-        float key[4];
-        bool push[4];
-        const unsigned hit =
-            node_children(a, node_row(a, s_nodes, idx), ro, tag, b.t, fold,
-                          ordered, 0, kind, child, key, ent, push, n_box);
-        for (int k = 0; k < 4; ++k) {
-          if (((hit >> k) & 1u) && kind[k] == 1) {
+  if (r < a.n_rays) {
+    const bool ordered = a.flags & LAB_ORDERED, fold = a.flags & LAB_FOLD;
+    Best b{a.t_max[r], 0.0f, 0.0f, -1, -1};
+    int n_node = 0, n_leaf = 0;
+    if (b.t >= 0.0f) {  // t_max < 0: dead ray, no traversal
+      stack.push(0);    // root of the top tree, tag 0
+      int cur_tag = -1;
+      rtggx::Ray ro;
+      while (stack.sp > 0) {
+        const int top = stack.sp;
+        const int n = min(a.npop, top);
+        stack.sp -= n;
+        rtggx::Pending<4> pend;
+        for (int p = 0; p < n; ++p) {
+          const int e = stack.at(top - 1 - p);
+          const int idx = e & LAB_NODE_MASK, tag = e >> LAB_TAG_SHIFT;
+          // the row's loads first: they do not wait for a tag switch
+          const rtggx::NodeRow row =
+              rtggx::load_row(a.nodes, lab_smem, a.smem_rows, idx);
+          if (tag != cur_tag) {
+            ro = lab_ray(a, tag, r);
+            cur_tag = tag;
+          }
+          ++n_node;
+          unsigned leaves, push;
+          int4 ent;
+          rtggx::children(row, ro, a.t_min, b.t, fold, ordered, tag, 0,
+                          leaves, ent, push, n_box);
+          pend.put(p, ent, push);
+          while (leaves) {  // hit leaves in child order
+            const int k = __ffs(leaves) - 1;
+            leaves &= leaves - 1;
             ++n_leaf;
-            lab_leaf<RECIP, MODE>(a, child[k], tag, ro, b, n_box, n_tri);
+            lab_leaf<RECIP, MODE>(a, (int)rtggx::lane(row.addr, k), tag, ro,
+                                  b, n_box, n_tri);
           }
         }
-        if (ordered) rtggx::sort4_desc(key, ent, push);
-        int c = 0;
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (push[k]) pend[p][c++] = ent[k];
-        pcnt[p] = c;
+        pend.flush(n, stack);
       }
-      // the last popped node's children go in first; a full stack drops
-      // the subtree (the callers size the stack from the tree's bound)
-      for (int p = n - 1; p >= 0; --p)
-        for (int i = 0; i < pcnt[p]; ++i)
-          if (sp < a.stack_size) stack[sp++] = pend[p][i];
     }
+    write_out<MODE>(a, r, b, a.flags & LAB_SLIM, a.flags & LAB_NOINST,
+                    n_node, n_leaf);
   }
-  write_out<MODE>(a, r, b, a.flags & LAB_SLIM, a.flags & LAB_NOINST, n_node,
-                  n_leaf, n_box, n_tri);
+  rtggx::add_stats(a.totals, n_box, n_tri);  // every thread of the warp
 }
 
 // K6b: _ls_kernel.  Exact divide, no fold, pre, slim or noinst (the TPU
-// kernel has none of them either).
+// kernel has none of them either).  Its stack stays per thread in local
+// memory; dynamic shared memory holds only the staged rows.
 template <bool FAT>
 __global__ void __launch_bounds__(512) ls_kernel(const LabArgs a) {
-  extern __shared__ float s_nodes[];
-  stage_nodes(a, s_nodes);
+  extern __shared__ float4 lab_smem[];
+  stage_nodes(a, lab_smem);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= a.n_rays) return;
-  const bool ordered = a.flags & LAB_ORDERED;
-  Best b{a.t_max[r], 0.0f, 0.0f, -1, -1};
-  int n_node = 0, n_leaf = 0;
-  unsigned long long n_box = 0, n_tri = 0;
+  unsigned n_box = 0, n_tri = 0;
 
-  if (b.t >= 0.0f) {
-    int stack[LAB_MAX_STACK];
-    int sp = 0;
-    stack[sp++] = 0;
-    int cur_tag = -1;
-    rtggx::Ray ro;
-    while (sp > 0) {
-      const int top = sp;
-      const int n = top >= 2 ? 2 : 1;
-      sp -= n;
-      int pend[2][4], pcnt[2];
-      for (int p = 0; p < n; ++p) {
-        const int e = stack[top - 1 - p];
-        const int idx = e & LAB_NODE_MASK;
-        const int tag = (e >> LAB_TAG_SHIFT) & 0x3FF;
-        if (tag != cur_tag) {
-          ro = lab_ray(a, tag, r);
-          cur_tag = tag;
-        }
-        pcnt[p] = 0;
-        if (e & LAB_LEAF_BIT) {
-          ++n_leaf;
-          lab_leaf<false, FAT ? 1 : 0>(a, idx, tag, ro, b, n_box, n_tri);
-          continue;
-        }
-        ++n_node;
-        int kind[4], child[4], ent[4];
-        float key[4];
-        bool push[4];
-        node_children(a, node_row(a, s_nodes, idx), ro, tag, b.t, false,
-                      ordered, LAB_LEAF_BIT, kind, child, key, ent, push,
-                      n_box);
-        if (ordered) rtggx::sort4_desc(key, ent, push);
-        int c = 0;
+  if (r < a.n_rays) {
+    const bool ordered = a.flags & LAB_ORDERED;
+    Best b{a.t_max[r], 0.0f, 0.0f, -1, -1};
+    int n_node = 0, n_leaf = 0;
+    if (b.t >= 0.0f) {
+      int stack[LAB_MAX_STACK];
+      int sp = 0;
+      stack[sp++] = 0;
+      int cur_tag = -1;
+      rtggx::Ray ro;
+      while (sp > 0) {
+        const int top = sp;
+        const int n = top >= 2 ? 2 : 1;
+        sp -= n;
+        int pend[2][4], pcnt[2];
+        for (int p = 0; p < n; ++p) {
+          const int e = stack[top - 1 - p];
+          const int idx = e & LAB_NODE_MASK;
+          const int tag = (e >> LAB_TAG_SHIFT) & 0x3FF;
+          if (tag != cur_tag) {
+            ro = lab_ray(a, tag, r);
+            cur_tag = tag;
+          }
+          pcnt[p] = 0;
+          if (e & LAB_LEAF_BIT) {
+            ++n_leaf;
+            lab_leaf<false, FAT ? 1 : 0>(a, idx, tag, ro, b, n_box, n_tri);
+            continue;
+          }
+          ++n_node;
+          unsigned leaves, push;
+          int4 ent;
+          rtggx::children(rtggx::load_row(a.nodes, lab_smem, a.smem_rows, idx),
+                          ro, a.t_min, b.t, false, ordered, tag, LAB_LEAF_BIT,
+                          leaves, ent, push, n_box);
+          const int ev[4] = {ent.x, ent.y, ent.z, ent.w};
+          int c = 0;
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (push[k]) pend[p][c++] = ent[k];
-        pcnt[p] = c;
+          for (int k = 0; k < 4; ++k)
+            if ((push >> k) & 1u) pend[p][c++] = ev[k];
+          pcnt[p] = c;
+        }
+        for (int p = n - 1; p >= 0; --p)
+          for (int i = 0; i < pcnt[p]; ++i)
+            if (sp < a.stack_size) stack[sp++] = pend[p][i];
       }
-      for (int p = n - 1; p >= 0; --p)
-        for (int i = 0; i < pcnt[p]; ++i)
-          if (sp < a.stack_size) stack[sp++] = pend[p][i];
     }
+    write_out<FAT ? 1 : 0>(a, r, b, false, false, n_node, n_leaf);
   }
-  write_out<FAT ? 1 : 0>(a, r, b, false, false, n_node, n_leaf, n_box, n_tri);
+  rtggx::add_stats(a.totals, n_box, n_tri);
+}
+
+// Launch with smem bytes of dynamic shared memory, opting in above the
+// default 48 KB.
+int launch(void (*kernel)(const LabArgs), int blocks, int threads,
+           size_t smem, cudaStream_t s, const LabArgs& a) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<blocks, threads, smem, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <bool RECIP>
-void launch_lab(int mode, int blocks, int threads, size_t smem,
-                cudaStream_t s, const LabArgs& a) {
+int launch_lab(int mode, int blocks, int threads, size_t smem,
+               cudaStream_t s, const LabArgs& a) {
   if (mode == 2)
-    lab_kernel<RECIP, 2><<<blocks, threads, smem, s>>>(a);
-  else if (mode == 1)
-    lab_kernel<RECIP, 1><<<blocks, threads, smem, s>>>(a);
-  else
-    lab_kernel<RECIP, 0><<<blocks, threads, smem, s>>>(a);
+    return launch(lab_kernel<RECIP, 2>, blocks, threads, smem, s, a);
+  if (mode == 1)
+    return launch(lab_kernel<RECIP, 1>, blocks, threads, smem, s, a);
+  return launch(lab_kernel<RECIP, 0>, blocks, threads, smem, s, a);
 }
 
 }  // namespace
 
+// smem_rows: node rows staged in shared memory per block (0: none);
+// stack_size: K6a's entries per thread in shared memory (the walk's bound),
+// K6b's in local memory (at most LAB_MAX_STACK).  K6a takes smem_rows * 144
+// + threads * stack_size * 4 bytes of shared memory per block.
 extern "C" int rtggx_trace_lab(
-    const void* nodes, int num_nodes, const void* tris, const void* attrs,
+    const void* nodes, int smem_rows, const void* tris4, const void* attrs,
     const void* boxes, int nq, const void* inv_mats, const void* pre,
     const void* ray_o, const void* ray_d, const void* t_max, float t_min,
     int n_rays, int leaf_size, int stack_size, int flags, int npop,
@@ -371,10 +373,12 @@ extern "C" int rtggx_trace_lab(
     void* out_prim, void* out_inst, void* counts, void* totals,
     void* stream) {
   if (n_rays <= 0) return 0;
-  if (stack_size > LAB_MAX_STACK) stack_size = LAB_MAX_STACK;
+  const bool ls = flags & LAB_LEAF_STACK;
+  if (stack_size < 1 || (ls && stack_size > LAB_MAX_STACK))
+    return (int)cudaErrorInvalidValue;
   LabArgs a;
-  a.nodes = (const float*)nodes;
-  a.tris = (const float*)tris;
+  a.nodes = (const float4*)nodes;
+  a.tris4 = (const float4*)tris4;
   a.attrs = (const float*)attrs;
   a.boxes = (const float*)boxes;
   a.inv_mats = (const float*)inv_mats;
@@ -389,8 +393,7 @@ extern "C" int rtggx_trace_lab(
   a.stack_size = stack_size;
   a.flags = flags;
   a.npop = npop < 1 ? 1 : (npop > 4 ? 4 : npop);
-  a.smem_rows = !(flags & LAB_SMEM) ? 0
-                : (num_nodes < LAB_SMEM_ROWS ? num_nodes : LAB_SMEM_ROWS);
+  a.smem_rows = smem_rows;
   a.out_t = (float*)out_t;
   a.out_u = (float*)out_u;
   a.out_v = (float*)out_v;
@@ -400,23 +403,15 @@ extern "C" int rtggx_trace_lab(
   a.counts = (int*)counts;
   a.totals = (unsigned long long*)totals;
   const int blocks = (n_rays + threads - 1) / threads;
-  const size_t smem = (size_t)a.smem_rows * 36 * sizeof(float);
+  const size_t rows = (size_t)smem_rows * 9 * sizeof(float4);
   cudaStream_t s = (cudaStream_t)stream;
-  if (flags & LAB_LEAF_STACK) {
-    if (flags & LAB_FAT)
-      ls_kernel<true><<<blocks, threads, smem, s>>>(a);
-    else
-      ls_kernel<false><<<blocks, threads, smem, s>>>(a);
-  } else {
-    const int mode = nq > 0 ? 2 : ((flags & LAB_FAT) ? 1 : 0);
-    if (flags & LAB_RECIP)
-      launch_lab<true>(mode, blocks, threads, smem, s, a);
-    else
-      launch_lab<false>(mode, blocks, threads, smem, s, a);
-  }
-  return (int)cudaGetLastError();
+  if (ls)
+    return flags & LAB_FAT ? launch(ls_kernel<true>, blocks, threads, rows, s, a)
+                           : launch(ls_kernel<false>, blocks, threads, rows, s, a);
+  const size_t smem = rows + (size_t)threads * stack_size * sizeof(int);
+  const int mode = nq > 0 ? 2 : ((flags & LAB_FAT) ? 1 : 0);
+  return flags & LAB_RECIP ? launch_lab<true>(mode, blocks, threads, smem, s, a)
+                           : launch_lab<false>(mode, blocks, threads, smem, s, a);
 }
 
 extern "C" int rtggx_lab_max_stack() { return LAB_MAX_STACK; }
-
-extern "C" int rtggx_lab_smem_rows() { return LAB_SMEM_ROWS; }

@@ -53,13 +53,13 @@ SIGNATURES = {
     # out_t out_u out_v out_pos stats stream
     "rtggx_trace_wide4": (_P, _P, _P, _P, _P, _P, _F, _I, _I,
                           _P, _P, _P, _P, _P, _P),
-    # K6a/K6b: nodes num_nodes tris attrs boxes nq inv_mats pre ray_o ray_d
+    # K6a/K6b: nodes smem_rows tris4 attrs boxes nq inv_mats pre ray_o ray_d
     # t_max t_min n_rays L stack flags npop threads
     # out_t out_u out_v out_n out_prim out_inst counts totals stream
     "rtggx_trace_lab": (_P, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _F, _I,
                         _I, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P),
-    # K7: nodes coef inv_mats ray_o ray_d t_max t_min n_rays L stack threads
+    # K7: nodes rec inv_mats ray_o ray_d t_max t_min n_rays L stack threads
     # out_t out_u out_v out_slot out_inst totals stream
     "rtggx_trace_mxu": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P),
@@ -67,7 +67,6 @@ SIGNATURES = {
     "rtggx_k4_max_stack": (),
     "rtggx_k5_max_stack": (),
     "rtggx_lab_max_stack": (),
-    "rtggx_lab_smem_rows": (),
 }
 
 
@@ -146,6 +145,23 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = list(args)
         fn.restype = ctypes.c_int
     return lib
+
+
+def ptxas_reports(log: str) -> dict:
+    """{mangled kernel name: (registers, stack frame bytes, spill store
+    bytes, spill load bytes)} from the build's -Xptxas=-v log."""
+    out, name, frame = {}, None, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "bytes stack frame" in line:
+            frame = [int(w) for w in line.replace(",", " ").split()
+                     if w.isdigit()]
+        elif "Used" in line and "registers" in line and name:
+            regs = int(line.split("Used")[1].split()[0])
+            out[name] = (regs, *frame)
+            name = None
+    return out
 
 
 def check_launch(err: int, name: str) -> None:

@@ -98,6 +98,11 @@ def float4_rows(tris):
     return torch.cat([t, torch.zeros_like(t[..., :1])], dim=2).reshape(-1, 12)
 
 
+def float3_rows(tris4):
+    """(T, 12) float4 rows -> the (T, 9) rows v0 e1 e2 they pad."""
+    return tris4.reshape(-1, 3, 4)[..., :3].reshape(-1, 9)
+
+
 def pair_rows(nodes):
     """(N, 9) DFS rows -> (P, 16) child-pair rows, one more than there
     are internal nodes.  Internal node i's children are node i + 1 and node

@@ -25,6 +25,7 @@ import torch
 
 from .cuda_lib import (check_launch, load_library, pointer, require,
                        stream_handle)
+from .flatten import float3_rows
 
 
 def build_records4_padded(bvh, leaf_size: int = 8, compact: bool = True):
@@ -226,9 +227,8 @@ def trace_tiles_instanced(nodes, tris4, inv_mats, inst_slots, ray_o, ray_d,
     int64 tensor the kernel adds its box and triangle tests to."""
     t_max = _per_ray(t_max, ray_o)
     if ray_o.device.type == "cpu":
-        tris = tris4.reshape(-1, 3, 4)[..., :3].reshape(-1, 9)
-        return trace_instanced_plain(tris, inv_mats, inst_slots, ray_o,
-                                     ray_d, t_min, t_max)
+        return trace_instanced_plain(float3_rows(tris4), inv_mats,
+                                     inst_slots, ray_o, ray_d, t_min, t_max)
     dev, f32 = ray_o.device, torch.float32
     R = ray_o.shape[0]
     require("nodes", nodes, (None, 36), f32, dev)

@@ -19,9 +19,9 @@ What the TPU flags become when each thread owns one ray:
               its tile's mid-ray); False pushes children 0..3 in order;
   npop        1, 2 or 4 entries popped per step, children pushed in the
               TPU kernel's order;
-  lean / fat  both read (S, 9) slots; prim comes from ``attrs[:, 9]``; fat
-              interpolates the winner's normal from ``attrs`` after the
-              walk, lean returns a zero normal;
+  lean / fat  both read the same slots; prim comes from ``attrs[:, 9]``;
+              fat interpolates the winner's normal from ``attrs`` after
+              the walk, lean returns a zero normal;
   slim        u = v = 0 returned; noinst: inst = 0 on a hit;
   recip       rcp.approx plus one Newton step in place of the divide;
   fold        each ray picks near and far planes by its own direction
@@ -32,12 +32,18 @@ What the TPU flags become when each thread owns one ray:
   sub         the leaf's ``sub_tris`` boxes gate its chunks of L/sub slots;
               prim is then the stream slot;
   smem_nodes  the first rows of the node table staged in shared memory per
-              block (``rtggx_lab_smem_rows``: 256 rows, 36,864 bytes);
+              block (``SMEM_ROWS``: 256 rows, 36,864 bytes);
   tile_s      16 * tile_s threads per block (tile_s = 8: K1's 128);
-  stack       each ray's stack capacity; above the kernel's compiled
-              maximum the wrapper raises.
+  stack       each ray's stack capacity.  K6a keeps it in shared memory
+              beside the staged rows: ``stack_bound`` of the tree's depth
+              and npop is the most the walk can need, and the wrapper
+              raises when 16 * tile_s * stack * 4 bytes and the rows
+              exceed a block's shared memory.  K6b keeps a stack in local
+              memory, at most ``rtggx_lab_max_stack`` (512) entries.
 The plain version ignores recip, fold, pre, smem_nodes and tile_s, which
-change no output beyond rounding.
+change no output beyond rounding.  The kernels read the slots as the
+(S, 12) ``SceneWideBVH.tris4`` rows; the plain version takes the (S, 9)
+slots.
 """
 
 from __future__ import annotations
@@ -49,6 +55,7 @@ import torch
 
 from ..cuda_lib import (check_launch, load_library, pointer, require,
                         stream_handle)
+from ..flatten import float3_rows
 from ..traverse_cuda import per_ray
 
 TAG_SHIFT = 20
@@ -58,8 +65,31 @@ THREADS_PER_ROW = 16        # threads per block = 16 * tile_s
 EPS = 1e-20
 # uniform flags of rtggx_trace_lab (csrc/traverse_lab.cu: LabFlag)
 FLAG_BITS = dict(ordered=1, fold=2, pre=4, slim=8, noinst=16, recip=32,
-                 fat=64, leaf_stack=128, smem_nodes=256)
+                 fat=64, leaf_stack=128)
 EXCHANGES = ((0, 1), (2, 3), (0, 2), (1, 3), (1, 2))
+SMEM_ROWS = 256             # node rows staged per block by smem_nodes
+ROW_BYTES = 36 * 4
+# dynamic shared memory one block may opt in to on the H100 (227 KB)
+SMEM_OPTIN = 232448
+
+
+def stack_bound(depth: int, npop: int) -> int:
+    """The most entries the lab's walk (K6a at ``npop``, K7 at 2) can hold
+    on a tree of ``depth`` levels (``SceneWideBVH.depth``): npop * (3 *
+    depth - 2), derived in csrc/lab.cuh."""
+    return max(1, int(npop) * (3 * int(depth) - 2))
+
+
+def check_smem(kernel, threads, stack, rows=0):
+    """Raise unless a stack of ``stack`` 4-byte entries (at least one) for
+    each of ``threads`` threads and ``rows`` staged node rows fit a block's
+    shared memory."""
+    need = threads * int(stack) * 4 + rows * ROW_BYTES
+    if stack < 1 or need > SMEM_OPTIN:
+        raise ValueError(f"{kernel}: a stack of {stack} for {threads} "
+                         f"threads and {rows} staged rows needs {need} "
+                         f"bytes of shared memory; a block has "
+                         f"{SMEM_OPTIN}")
 
 
 def nodes_flat_for_smem(sw):
@@ -297,7 +327,7 @@ lab_kernel.launches = 0
 ls_kernel.launches = 0
 
 
-def trace_tiles_lab(nodes, tris, inv_mats, ray_o, ray_d, t_min, t_max,
+def trace_tiles_lab(nodes, tris4, inv_mats, ray_o, ray_d, t_min, t_max,
                     leaf_size: int, stack: int = 128, tile_s: int = 8,
                     stats: bool = False, smem_nodes: bool = False,
                     npop: int = 2, ordered: bool = True, lean: bool = False,
@@ -307,12 +337,14 @@ def trace_tiles_lab(nodes, tris, inv_mats, ray_o, ray_d, t_min, t_max,
                     *, attrs, boxes=None, totals=None):
     """Lab launcher mirroring ops/fused.trace_tiles_instanced: closest hit
     of (R, 3) WORLD-space rays through K6a, or K6b with ``leaf_stack``.
-    ``attrs``: the scene's (S, 10) slot table; ``boxes``: ``sub_tris(sw,
-    sub)`` for the ``sub`` variant; ``totals``: optional (2,) int64 tensor
-    the kernel adds its box and triangle tests to.  Returns (t, u, v, nrm,
-    prim, inst, st) with st the (R, 2) int32 per-ray [node visits, leaf
-    visits] when ``stats``, else None.  CUDA tensors launch the kernel (or
-    raise); CPU tensors take ``trace_lab_plain``."""
+    ``tris4``: the scene's (S, 12) slot rows; ``attrs``: its (S, 10) slot
+    table; ``stack``: K6a's ``stack_bound(sw.depth, npop)``; ``boxes``:
+    ``sub_tris(sw, sub)`` for the ``sub`` variant; ``totals``: optional
+    (2,) int64 tensor the kernel adds its box and triangle tests to.
+    Returns (t, u, v, nrm, prim, inst, st) with st the (R, 2) int32
+    per-ray [node visits, leaf visits] when ``stats``, else None.  CUDA
+    tensors launch the kernel (or raise); CPU tensors take
+    ``trace_lab_plain``."""
     if leaf_stack and pre:
         raise ValueError("leaf_stack + pre is not implemented: _ls_kernel "
                          "has no pre path and would silently time the "
@@ -331,32 +363,40 @@ def trace_tiles_lab(nodes, tris, inv_mats, ray_o, ray_d, t_min, t_max,
                          "must be 1..512")
     if leaf_stack and inv_mats.shape[0] > 1024:
         raise ValueError("leaf_stack entries carry a 10-bit tag")
+    rows = min(nodes.shape[0], SMEM_ROWS) if smem_nodes else 0
+    if not leaf_stack:
+        check_smem("K6a", threads, stack, rows)
     t_max = per_ray(t_max, ray_o)
     if ray_o.device.type == "cpu":
-        out = trace_lab_plain(nodes, tris, attrs, inv_mats, ray_o, ray_d,
-                              t_min, t_max, leaf_size, stack, npop, ordered,
-                              lean, leaf_stack, slim, sub, boxes, noinst)
+        out = trace_lab_plain(nodes, float3_rows(tris4), attrs, inv_mats,
+                              ray_o, ray_d, t_min, t_max, leaf_size, stack,
+                              npop, ordered, lean, leaf_stack, slim, sub,
+                              boxes, noinst)
         return out[:6] + ((out[6][:, :2].contiguous() if stats else None),)
 
     dev, f32 = ray_o.device, torch.float32
     R, L = ray_o.shape[0], int(leaf_size)
     require("nodes", nodes, (None, 36), f32, dev)
-    require("tris", tris, (None, 9), f32, dev)
-    require("attrs", attrs, (tris.shape[0], 10), f32, dev)
+    require("tris4", tris4, (None, 12), f32, dev)
+    require("attrs", attrs, (tris4.shape[0], 10), f32, dev)
     require("inv_mats", inv_mats, (None, 12), f32, dev)
     require("ray_o", ray_o, (R, 3), f32, dev)
     require("ray_d", ray_d, (R, 3), f32, dev)
+    for name, t in (("nodes", nodes), ("tris4", tris4)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the lab kernels read float4 rows, "
+                             f"need a 16-byte aligned tensor")
     if sub:
-        require("boxes", boxes, (tris.shape[0] // L, 6 * sub), f32, dev)
+        require("boxes", boxes, (tris4.shape[0] // L, 6 * sub), f32, dev)
     if totals is not None:
         require("totals", totals, (2,), torch.int64, dev)
     lib = load_library()
-    if stack > lib.rtggx_lab_max_stack():
-        raise ValueError(f"stack {stack} exceeds the kernel's "
+    if leaf_stack and stack > lib.rtggx_lab_max_stack():
+        raise ValueError(f"stack {stack} exceeds K6b's "
                          f"{lib.rtggx_lab_max_stack()}")
     opts = dict(ordered=ordered, fold=fold, pre=pre, slim=slim,
                 noinst=noinst, recip=recip, fat=not lean,
-                leaf_stack=leaf_stack, smem_nodes=smem_nodes)
+                leaf_stack=leaf_stack)
     flags = sum(bit for name, bit in FLAG_BITS.items() if opts[name])
     pre_tbl = pre_ray_state(inv_mats, ray_o, ray_d) if pre else None
     t, u, v = (torch.empty(R, dtype=f32, device=dev) for _ in range(3))
@@ -364,7 +404,7 @@ def trace_tiles_lab(nodes, tris, inv_mats, ray_o, ray_d, t_min, t_max,
     prim, inst = (torch.empty(R, dtype=torch.int32, device=dev)
                   for _ in range(2))
     st = torch.empty((R, 2), dtype=torch.int32, device=dev) if stats else None
-    args = (nodes.data_ptr(), nodes.shape[0], tris.data_ptr(),
+    args = (nodes.data_ptr(), rows, tris4.data_ptr(),
             attrs.data_ptr(), pointer(boxes if sub else None), int(sub),
             inv_mats.data_ptr(), pointer(pre_tbl), ray_o.data_ptr(),
             ray_d.data_ptr(), t_max.data_ptr(), float(t_min), R, L,

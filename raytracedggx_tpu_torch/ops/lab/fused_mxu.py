@@ -9,9 +9,10 @@ leaf of L slots becomes one coefficient block and its test one product.
 The TPU kernel ``_mxu_kernel`` ran that product on its matrix unit over a
 1024-ray packet; here it becomes the CUDA kernel K7 in
 ``csrc/traverse_mxu.cu`` (one ray per thread, fp32 FMAs), launched by
-``trace_tiles_mxu``.  ``trace_mxu_plain`` is the plain torch version: the
-same linear form over every (instance, slot) pair, as one product per
-instance.
+``trace_tiles_mxu``, which reads the table as per-slot records
+(``mxu_records``: a slot's 40 coefficients in 160 contiguous bytes).
+``trace_mxu_plain`` is the plain torch version: the same linear form over
+every (instance, slot) pair, as one product per instance.
 
 The reference's verdict on the TPU (a loss to the lean L16 kernel,
 fused_mxu.py:36-45) is a TPU result and says nothing about this card.
@@ -19,13 +20,15 @@ fused_mxu.py:36-45) is a TPU result and says nothing about this card.
 
 from __future__ import annotations
 
+import weakref
+
 import numpy as np
 import torch
 
 from ..cuda_lib import check_launch, load_library, pointer, require, \
     stream_handle
 from ..traverse_cuda import per_ray
-from .fused_lab import THREADS_PER_ROW, pre_ray_state
+from .fused_lab import THREADS_PER_ROW, check_smem, pre_ray_state
 
 
 def mxu_stream(sw):
@@ -56,6 +59,33 @@ def mxu_stream(sw):
     put(0, 3, n)                           # t    <- o
     put(9, 3, -(v0 * n).sum(-1))           # t    <- 1
     return torch.as_tensor(C, device=sw.tris.device)
+
+
+def mxu_records(coef):
+    """(n_leaves * L, 40) f32 per-slot records of a (n_leaves, 10, 4L)
+    table: slot leaf * L + k holds, for each feature f in turn, the
+    coefficients of its det, u*det, v*det and t*det (one float4), each
+    equal to its entry of ``coef``."""
+    n_leaves, _, w = coef.shape
+    L = w // 4
+    return (coef.reshape(n_leaves, 10, 4, L).permute(0, 3, 1, 2)
+            .reshape(n_leaves * L, 40).contiguous())
+
+
+# id(table) -> (table's version, its records); an entry goes with its table
+_RECORDS: dict = {}
+
+
+def _records_of(coef):
+    """``mxu_records(coef)``, built once per table (again if the table was
+    written to since)."""
+    key = id(coef)
+    hit = _RECORDS.get(key)
+    if hit is None or hit[0] != coef._version:
+        if hit is None:
+            weakref.finalize(coef, _RECORDS.pop, key, None)
+        hit = _RECORDS[key] = (coef._version, mxu_records(coef))
+    return hit[1]
 
 
 def features(rs):
@@ -117,9 +147,13 @@ def trace_tiles_mxu(nodes, coef, inv_mats, inst_slots, ray_o, ray_d, t_min,
                     tile_s: int = 8, totals=None):
     """K7 wrapper, the contract of trace_tiles_instanced: (t, u, v, slot,
     inst) of (R, 3) WORLD-space rays, slot = leaf * L + k (-1 on a miss).
-    ``coef`` from ``mxu_stream``; ``totals``: optional (2,) int64 tensor
-    the kernel adds its box tests and slot tests to.  CUDA tensors launch
-    the kernel (or raise); CPU tensors take ``trace_mxu_plain``."""
+    ``coef`` from ``mxu_stream`` (the kernel reads ``mxu_records`` of it,
+    built on the first launch with the table); ``stack``: the shared-memory
+    stack per ray, ``stack_bound(sw.depth, 2)``, which 16 * tile_s threads
+    must fit in a block's shared memory or this raises; ``totals``:
+    optional (2,) int64 tensor the kernel adds its box tests and slot tests
+    to.  CUDA tensors launch the kernel (or raise); CPU tensors take
+    ``trace_mxu_plain``."""
     L = int(leaf_size)
     threads = THREADS_PER_ROW * int(tile_s)
     if not 1 <= threads <= 512:
@@ -127,6 +161,7 @@ def trace_tiles_mxu(nodes, coef, inv_mats, inst_slots, ray_o, ray_d, t_min,
                          "must be 1..512")
     if 4 * L > 128:
         raise ValueError("coefficient block needs 4L lanes <= 128")
+    check_smem("K7", threads, stack)
     t_max = per_ray(t_max, ray_o)
     if ray_o.device.type == "cpu":
         return trace_mxu_plain(coef, inv_mats, inst_slots, ray_o, ray_d,
@@ -140,15 +175,16 @@ def trace_tiles_mxu(nodes, coef, inv_mats, inst_slots, ray_o, ray_d, t_min,
     require("ray_d", ray_d, (R, 3), f32, dev)
     if totals is not None:
         require("totals", totals, (2,), torch.int64, dev)
+    if nodes.data_ptr() % 16:
+        raise ValueError("nodes: K7 reads float4 rows, need a 16-byte "
+                         "aligned tensor")
+    rec = _records_of(coef)
     lib = load_library()
-    if stack > lib.rtggx_lab_max_stack():
-        raise ValueError(f"stack {stack} exceeds the kernel's "
-                         f"{lib.rtggx_lab_max_stack()}")
     t, u, v = (torch.empty(R, dtype=f32, device=dev) for _ in range(3))
     slot, inst = (torch.empty(R, dtype=torch.int32, device=dev)
                   for _ in range(2))
     err = lib.rtggx_trace_mxu(
-        nodes.data_ptr(), coef.data_ptr(), inv_mats.data_ptr(),
+        nodes.data_ptr(), rec.data_ptr(), inv_mats.data_ptr(),
         ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(), float(t_min),
         R, L, int(stack), threads, t.data_ptr(), u.data_ptr(), v.data_ptr(),
         slot.data_ptr(), inst.data_ptr(), pointer(totals),

@@ -49,6 +49,7 @@ class SceneWideBVH(NamedTuple):
     leaf_size: int
     stack: int                  # the reference's bound (two-pop DFS)
     k1_stack: int               # K1's bound: near-first DFS, 3 * depth + 1
+    depth: int                  # nodes on the longest root-to-leaf path
 
 
 def _instance_tree(num_inst: int):
@@ -122,6 +123,7 @@ def tree_depth(kind, a_col) -> int:
 def _assemble(tris, attrs, kind, a_col, b_col, boxes, n_top, top_children,
               num_inst, L, stack, worlds, device) -> SceneWideBVH:
     corners, slots = _derived(kind, a_col, b_col, boxes, n_top, num_inst, L)
+    depth = tree_depth(kind, a_col)
     static_cols = np.concatenate([kind, a_col, b_col], axis=1)
 
     def dev(x, dtype=torch.float32):
@@ -137,7 +139,7 @@ def _assemble(tris, attrs, kind, a_col, b_col, boxes, n_top, top_children,
         inst_slots=tuple(dev(s, torch.int64) for s in slots),
         top_children=tuple(top_children), n_top=int(n_top),
         num_nodes=int(kind.shape[0]), leaf_size=int(L), stack=int(stack),
-        k1_stack=3 * tree_depth(kind, a_col) + 1)
+        k1_stack=3 * depth + 1, depth=depth)
     if worlds is None:
         worlds = torch.eye(4, device=device).expand(num_inst, 4, 4)
     return refit_scene_wide(sw, worlds)

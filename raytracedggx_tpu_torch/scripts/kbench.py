@@ -11,8 +11,8 @@ sets:
                 K1's primary hit, sorted dead | octant | Morton with the
                 dead rays at the tail (what the reflection wave feeds K1),
                 traced from t_min = 1e-3 (``T_MIN_REFL``; the reference
-                traced them from 0, where K7's linear-form test finds the
-                origin's own triangle again where K1 does not).
+                traced them from 0, where K7's linear-form test and K1
+                disagree on re-hits of a ray's own start triangle).
 
 Each variant runs on each set ``frames`` times between CUDA events and
 prints the median (the reference chained a fori_loop, a workaround for its
@@ -47,10 +47,12 @@ T_MAX = 10000.0
 # and whether a test finds that surface again at t ~ 0 is a coin flip of
 # its rounding (~6e-8 / cos(angle to the surface) in t, for K1's
 # Moller-Trumbore and K7's linear form alike, but with different coins).
-# The frame's wave uses 1e-5 (trace/raygen.py); on the H100 K7 disagreed
-# with K1 on one grazing ray at 1e-5 (t 1.013e-5 against 0.899) and on
-# another at 1e-4 (t 1.09e-4 against a miss), so the bench starts the set
-# at 1e-3, 5e-5 of the scene's extent
+# From t_min 0 on the H100, K7 and K1 differ beyond the gate on 34 of the
+# 105,690 live rays, each with its nearer t at most 3.5e-6 (30 of them at
+# exactly 0, 33 of them K7's): re-hits of the start triangle.  Starting
+# the set at 1e-3, 5e-5 of the scene's extent, removes only those, and
+# chip_smoke.py phase 6 checks it on every run.  The frame's wave uses
+# 1e-5 (trace/raygen.py).
 T_MIN_REFL = 1e-3
 PARITY_BAR = 1e-3
 TREE_KEYS = {"l16": 16, "l32": 32, "l64": 64, "l128": 128}
@@ -310,9 +312,14 @@ class Bench:
 
     @staticmethod
     def stack(s, kw):
-        """Per-ray stack capacity: the tree's bound, 3x for leaf_stack
-        (scripts/kbench.py:208)."""
-        return s.stack * (3 if kw.get("leaf_stack") else 1)
+        """Per-ray stack capacity: for K6a and K7 the bound of their walk
+        on the tree (``stack_bound``, npop 2 for K7); for K6b three times
+        the tree's ``stack`` (scripts/kbench.py:208)."""
+        from ..ops.lab.fused_lab import stack_bound
+
+        if kw.get("leaf_stack"):
+            return s.stack * 3
+        return stack_bound(s.depth, 2 if "mxu" in kw else kw.get("npop", 2))
 
     def launch(self, kw, o, d, t_max, stats=None, totals=None, t_min=0.0):
         """One launch of a variant on rays (o, d, t_max): K1 through
@@ -330,12 +337,13 @@ class Bench:
         if "mxu" in kw:
             return trace_tiles_mxu(s.nodes, self.coef(s, L), s.inv_mats,
                                    s.inst_slots, o, d, t_min, t_max, L,
-                                   s.stack, kw.get("tile_s", 8), totals)
+                                   self.stack(s, kw), kw.get("tile_s", 8),
+                                   totals)
         lab_kw = {k: v for k, v in kw.items()
                   if k not in TREE_KEYS and k not in ("lbvh16", "alldead")}
         if stats is not None:
             lab_kw["stats"] = stats
-        return trace_tiles_lab(s.nodes, s.tris, s.inv_mats, o, d, t_min,
+        return trace_tiles_lab(s.nodes, s.tris4, s.inv_mats, o, d, t_min,
                                t_max, leaf_size=L, stack=self.stack(s, kw),
                                attrs=s.attrs, boxes=self.boxes(s, kw),
                                totals=totals, **lab_kw)

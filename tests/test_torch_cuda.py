@@ -428,12 +428,13 @@ def test_lab_kernels_match_plain(cuda, case):
     kw = LAB_CASES[case]
     sw = _model_bvh(cuda, 16)
     o, d, t_max = _model_rays(cuda)
-    stack = sw.stack * (3 if kw.get("leaf_stack") else 1)
+    stack = (sw.stack * 3 if kw.get("leaf_stack")
+             else lab.stack_bound(sw.depth, kw.get("npop", 2)))
     boxes = lab.sub_tris(sw, kw["sub"]) if kw.get("sub") else None
     counter = lab.ls_kernel if kw.get("leaf_stack") else lab.lab_kernel
     n0 = counter.launches
     totals = torch.zeros(2, dtype=torch.int64, device=cuda)
-    got = lab.trace_tiles_lab(sw.nodes, sw.tris, sw.inv_mats, o, d, 0.0,
+    got = lab.trace_tiles_lab(sw.nodes, sw.tris4, sw.inv_mats, o, d, 0.0,
                               t_max, 16, stack=stack, attrs=sw.attrs,
                               boxes=boxes, totals=totals, **kw)
     plain_kw = {k: v for k, v in kw.items()
@@ -461,16 +462,18 @@ def test_lab_kernels_match_plain(cuda, case):
     assert float((st == ref[6][:, :2]).all(dim=1).float().mean()) >= 0.99
 
 
-@pytest.mark.parametrize("leaf_size", [16, 32])
-def test_mxu_kernel_matches_plain(cuda, leaf_size):
+@pytest.mark.parametrize("leaf_size,tile_s", [(16, 8), (32, 8), (32, 32)])
+def test_mxu_kernel_matches_plain(cuda, leaf_size, tile_s):
     from raytracedggx_tpu_torch.ops.lab import fused_mxu as mxu
+    from raytracedggx_tpu_torch.ops.lab.fused_lab import stack_bound
 
     sw = _model_bvh(cuda, leaf_size)
     o, d, t_max = _model_rays(cuda)
     coef = mxu.mxu_stream(sw)
     n0 = mxu.trace_tiles_mxu.launches
     got = mxu.trace_tiles_mxu(sw.nodes, coef, sw.inv_mats, sw.inst_slots, o,
-                              d, 0.0, t_max, leaf_size, sw.stack)
+                              d, 0.0, t_max, leaf_size,
+                              stack_bound(sw.depth, 2), tile_s)
     ref = mxu.trace_mxu_plain(coef, sw.inv_mats, sw.inst_slots, o, d, 0.0,
                               t_max, leaf_size)
     k1 = _k1(sw, o, d, t_max)
@@ -487,11 +490,90 @@ def test_lab_wrappers_refuse_bad_inputs(cuda):
     sw = _model_bvh(cuda, 16)
     o, d, t_max = _model_rays(cuda, 64)
     with pytest.raises(ValueError):                  # above the kernel's
-        lab.trace_tiles_lab(sw.nodes, sw.tris, sw.inv_mats, o, d, 0.0,
+        lab.trace_tiles_lab(sw.nodes, sw.tris4, sw.inv_mats, o, d, 0.0,
                             t_max, 16, stack=10 ** 6, attrs=sw.attrs)
     with pytest.raises(ValueError):                  # attrs on the CPU
-        lab.trace_tiles_lab(sw.nodes, sw.tris, sw.inv_mats, o, d, 0.0,
+        lab.trace_tiles_lab(sw.nodes, sw.tris4, sw.inv_mats, o, d, 0.0,
                             t_max, 16, attrs=sw.attrs.cpu())
     with pytest.raises(ValueError):                  # coef of another L
         mxu.trace_tiles_mxu(sw.nodes, mxu.mxu_stream(sw), sw.inv_mats,
                             sw.inst_slots, o, d, 0.0, t_max, 8)
+    with pytest.raises(ValueError):                  # beyond shared memory
+        mxu.trace_tiles_mxu(sw.nodes, mxu.mxu_stream(sw), sw.inv_mats,
+                            sw.inst_slots, o, d, 0.0, t_max, 16, 114, 32)
+    with pytest.raises(ValueError):                  # with the staged rows
+        lab.trace_tiles_lab(sw.nodes, sw.tris4, sw.inv_mats, o, d, 0.0,
+                            t_max, 16, stack=113, tile_s=32,
+                            smem_nodes=True, attrs=sw.attrs)
+    with pytest.raises(ValueError):                  # rows not 16-aligned
+        lab.trace_tiles_lab(sw.nodes, _shifted(sw.tris4), sw.inv_mats, o, d,
+                            0.0, t_max, 16, stack=8, attrs=sw.attrs)
+
+
+def _shifted(rows):
+    """A copy of rows whose storage starts 4 bytes past a 16-byte line."""
+    buf = torch.empty(rows.numel() + 1, dtype=rows.dtype,
+                      device=rows.device)
+    out = buf[1:].view(rows.shape)
+    out.copy_(rows)
+    return out
+
+
+def _full_tree(device, depth=5):
+    """A full 4-ary tree of ``depth`` levels whose boxes all hold the
+    origin (the bottom level's children empty), one pad slot: every ray
+    from the origin pushes every internal child."""
+    n = sum(4 ** k for k in range(depth))
+    nodes = torch.zeros((n, 36))
+    nodes[:, :24] = torch.tensor([-1.0, -1.0, -1.0, 1.0, 1.0, 1.0] * 4)
+    for i in range(sum(4 ** k for k in range(depth - 1))):
+        nodes[i, 24:28] = 2.0
+        nodes[i, 28:32] = torch.arange(4 * i + 1, 4 * i + 5,
+                                       dtype=torch.float32)
+    tris = torch.full((1, 9), float("nan"))
+    return tuple(x.to(device) for x in (
+        nodes, tris, torch.full((1, 12), float("nan")), torch.zeros((1, 10)),
+        torch.eye(4)[:, :3].reshape(1, 12)))
+
+
+@pytest.mark.parametrize("npop", [1, 2, 4])
+@pytest.mark.parametrize("half", [False, True])
+def test_lab_shared_stack_fills_and_drops_as_plain(cuda, npop, half):
+    """K6a on a full tree of depth 5, where the walk's stack comes near
+    its bound (at npop 1 it reaches it), with the capacity at the bound
+    and at half of it (pushes onto the full stack dropped): per-ray node
+    visits equal the plain version's, at several thread counts of a
+    block."""
+    from raytracedggx_tpu_torch.ops.lab import fused_lab as lab
+
+    nodes, tris, tris4, attrs, inv = _full_tree(cuda)
+    rng = np.random.default_rng(npop)
+    n = 1000
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = torch.zeros((n, 3), device=cuda)
+    d = torch.as_tensor(d, device=cuda)
+    t_max = torch.where(torch.arange(n, device=cuda) % 5 == 0, -1.0, 1e4)
+    stack = lab.stack_bound(5, npop) // (2 if half else 1)
+    ref = lab.trace_lab_plain(nodes, tris, attrs, inv, o, d, 0.0, t_max, 1,
+                              stack, npop)
+    assert int(ref[6][:, 2].max()) <= stack
+    for tile_s in (2, 8, 32):
+        got = lab.trace_tiles_lab(nodes, tris4, inv, o, d, 0.0, t_max, 1,
+                                  stack=stack, tile_s=tile_s, stats=True,
+                                  npop=npop, attrs=attrs)
+        torch.cuda.synchronize()
+        assert torch.equal(got[6], ref[6][:, :2])
+        assert not bool((got[4] >= 0).any())
+
+
+def test_lab_kernels_have_no_frame_or_spills(cuda):
+    """ptxas gives every K6a instance and K7 no stack frame and no spills
+    (their stacks sit in shared memory)."""
+    from raytracedggx_tpu_torch.ops import cuda_lib
+
+    reports = cuda_lib.ptxas_reports(cuda_lib.build()[1])
+    for key, n in (("lab_kernel", 6), ("mxu_kernel", 1)):
+        rows = [r for name, r in reports.items() if key in name]
+        assert len(rows) == n and all(r[1:] == (0, 0, 0) for r in rows), \
+            (key, rows)

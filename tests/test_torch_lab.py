@@ -39,7 +39,8 @@ from raytracedggx_tpu.trace.geometry import upload_mesh as j_upload_mesh
 
 from raytracedggx_tpu_torch.ops.lab import fused_lab as lab
 from raytracedggx_tpu_torch.ops.scene_wide import (build_scene_wide,
-                                                   from_reference_arrays)
+                                                   from_reference_arrays,
+                                                   refit_scene_wide)
 from raytracedggx_tpu_torch.scene import Scene, default_materials, ground_cube
 from raytracedggx_tpu_torch.trace.geometry import upload_scene
 
@@ -91,7 +92,7 @@ def _port(sw, o, d, t_max, **kw):
     stack = sw.stack * (3 if kw.get("leaf_stack") else 1)
     boxes = lab.sub_tris(sw, kw["sub"]) if kw.get("sub") else None
     return lab.trace_tiles_lab(
-        sw.nodes, sw.tris, sw.inv_mats, torch.as_tensor(o),
+        sw.nodes, sw.tris4, sw.inv_mats, torch.as_tensor(o),
         torch.as_tensor(d), 0.0, torch.as_tensor(t_max), leaf_size=L,
         stack=stack, attrs=sw.attrs, boxes=boxes, **kw)
 
@@ -233,7 +234,7 @@ def test_lab_wrapper_raises_as_reference(world):
     for kw in bad:
         kw = dict(dict(boxes=lab.sub_tris(sw, 4)), **kw)
         with pytest.raises(ValueError):
-            lab.trace_tiles_lab(sw.nodes, sw.tris, sw.inv_mats,
+            lab.trace_tiles_lab(sw.nodes, sw.tris4, sw.inv_mats,
                                 torch.as_tensor(o[:8]),
                                 torch.as_tensor(d[:8]), 0.0, 1e4, L,
                                 attrs=sw.attrs, **kw)
@@ -265,3 +266,109 @@ def test_lbvh_builder_equals_reference():
     assert not torch.equal(got.tris, sah.tris)       # another tree
     with pytest.raises(ValueError):
         build_scene_wide(upload_scene(ts), ts.mesh_ids, builder="bvh")
+
+
+def _bound_scene(name, world):
+    """A small test scene's port tree at leaf size 8 (the 3-instance cubes
+    of the fixture at 16)."""
+    from raytracedggx_tpu_torch.scripts.standin import (model_scene,
+                                                        nested_scene)
+
+    if name == "cubes":
+        return world[1], L
+    scene, angle = ((nested_scene(), 1.3) if name == "nested"
+                    else (model_scene(3), 0.4))
+    sw = build_scene_wide(upload_scene(scene), scene.mesh_ids, leaf_size=8)
+    return refit_scene_wide(sw, scene.worlds(np.float32(angle))), 8
+
+
+@pytest.mark.parametrize("scene", ["cubes", "nested", "model"])
+@pytest.mark.parametrize("npop", [1, 2, 4])
+def test_walk_stays_inside_stack_bound(world, scene, npop):
+    """The plain walk's deepest stack (its third count), run with one
+    entry more than ``stack_bound``, never exceeds the bound, so at the
+    bound no push is dropped."""
+    sw, leaf = _bound_scene(scene, world)
+    bound = lab.stack_bound(sw.depth, npop)
+    o, d = _rand_rays(np.random.default_rng(7 + npop), N_RAYS)
+    t_max = torch.full((N_RAYS,), 1e4)
+    out = lab.trace_lab_plain(sw.nodes, sw.tris, sw.attrs, sw.inv_mats,
+                              torch.as_tensor(o), torch.as_tensor(d), 0.0,
+                              t_max, leaf, bound + 1, npop)
+    assert int((out[4] >= 0).sum()) > 0
+    assert 1 < int(out[6][:, 2].max()) <= bound
+
+
+def _full_tree(depth):
+    """A full 4-ary tree of ``depth`` levels whose boxes all hold the
+    origin, the bottom level's children empty, and one pad slot."""
+    n = sum(4 ** k for k in range(depth))
+    inner = sum(4 ** k for k in range(depth - 1))
+    nodes = torch.zeros((n, 36))
+    nodes[:, :24] = torch.tensor([-1.0, -1.0, -1.0, 1.0, 1.0, 1.0] * 4)
+    for i in range(inner):
+        nodes[i, 24:28] = 2.0
+        nodes[i, 28:32] = torch.arange(4 * i + 1, 4 * i + 5,
+                                       dtype=torch.float32)
+    tris = torch.full((1, 9), float("nan"))
+    return nodes, tris, torch.zeros((1, 10)), torch.eye(4)[:, :3].reshape(
+        1, 12)
+
+
+@pytest.mark.parametrize("npop,deepest", [(1, 10), (2, 16), (4, 28)])
+def test_stack_bound_on_a_full_tree(npop, deepest):
+    """Every box of a full 4-ary tree of depth 4 passes, so the walk
+    pushes every internal child: its deepest stack is 3D - 2 = 10 at npop
+    1 (the bound), 6D - 8 = 16 at npop 2 and 28 at npop 4, inside
+    npop * (3D - 2)."""
+    nodes, tris, attrs, inv = _full_tree(4)
+    o = torch.zeros((1, 3))
+    d = torch.tensor([[0.3, -0.8, 0.5]])
+    out = lab.trace_lab_plain(nodes, tris, attrs, inv, o, d, 0.0,
+                              torch.tensor([1e4]), 1, 1000, npop)
+    assert out[6][0].tolist() == [85, 0, deepest]      # every node visited
+    assert deepest <= lab.stack_bound(4, npop)
+    if npop == 1:
+        assert deepest == lab.stack_bound(4, 1)
+
+
+def test_wrapper_raises_on_a_stack_beyond_shared_memory(world):
+    """K6a's stacks and staged rows must fit a block's 232,448 bytes: 512
+    threads hold 113 entries each, not 114, and not 113 beside the staged
+    rows; K6b's stack is not in shared memory."""
+    _, sw, o, d, t_max = world
+    assert sw.num_nodes * lab.ROW_BYTES > 232448 - 512 * 113 * 4
+
+    def run(tile_s=32, **kw):
+        return lab.trace_tiles_lab(sw.nodes, sw.tris4, sw.inv_mats,
+                                   torch.as_tensor(o[:8]),
+                                   torch.as_tensor(d[:8]), 0.0, 1e4, L,
+                                   attrs=sw.attrs, tile_s=tile_s, **kw)
+
+    run(stack=113)
+    run(stack=384, leaf_stack=True, smem_nodes=True)
+    for kw in (dict(stack=114), dict(stack=113, smem_nodes=True),
+               dict(stack=0), dict(stack=10 ** 6, tile_s=1)):
+        with pytest.raises(ValueError, match="shared memory"):
+            run(**kw)
+
+
+def test_ptxas_reports_reads_each_kernel():
+    """The build log's -Xptxas=-v lines give each kernel's registers,
+    stack frame and spills, as chip_smoke.py phase 1 and the card tests
+    read them for K6a's instances and K7."""
+    from raytracedggx_tpu_torch.ops.cuda_lib import ptxas_reports
+
+    log = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_110lab_kernelILb1ELi2EEEvNS_7LabArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_110lab_kernelILb1ELi2EEEvNS_7LabArgsE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 560 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_19ls_kernelILb0EEEvNS_7LabArgsE' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_19ls_kernelILb0EEEvNS_7LabArgsE
+    2048 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 64 registers, used 1 barriers, 560 bytes cmem[0]
+"""
+    rep = ptxas_reports(log)
+    assert list(rep.values()) == [(72, 0, 0, 0), (64, 2048, 8, 4)]
+    assert ["lab_kernel" in k for k in rep] == [True, False]

@@ -101,3 +101,51 @@ def test_mxu_refuses_wide_leaves():
         mxu.trace_tiles_mxu(sw.nodes, torch.zeros((1, 10, 256)),
                             sw.inv_mats, sw.inst_slots, o, o + 1.0, 0.0,
                             1e4, 64)
+
+
+@pytest.mark.parametrize("leaf_size", [8, 32])
+def test_mxu_records_equal_the_table(leaf_size):
+    """The kernel's per-slot records hold the reference's table element
+    for element: slot leaf * L + k, feature f, output g (det, u, v, t) is
+    the table's [leaf, f, g * L + k]."""
+    ref, sw = _ref_and_port(leaf_size)
+    L = leaf_size
+    n_leaves = sw.tris.shape[0] // L
+    table = np.asarray(jmxu.mxu_stream(ref))[:n_leaves, :10, :4 * L]
+    rec = mxu.mxu_records(torch.as_tensor(np.ascontiguousarray(table)))
+    assert rec.shape == (n_leaves * L, 40) and rec.is_contiguous()
+    leaf, k = np.divmod(np.arange(n_leaves * L), L)
+    want = np.stack([table[leaf, f, g * L + k] for f in range(10)
+                     for g in range(4)], axis=1)
+    np.testing.assert_array_equal(rec.numpy(), want)          # NaN pads
+
+
+def test_mxu_records_built_once_per_table():
+    _, sw = _ref_and_port(8)
+    coef = mxu.mxu_stream(sw)
+    rec = mxu._records_of(coef)
+    assert mxu._records_of(coef) is rec
+    coef[0, 9, 0] += 1.0                       # written to: built again
+    again = mxu._records_of(coef)
+    assert again is not rec and float(again[0, 36]) == float(coef[0, 9, 0])
+    key = id(coef)
+    del coef
+    assert key not in mxu._RECORDS
+
+
+def test_mxu_wrapper_raises_on_a_stack_beyond_shared_memory():
+    """K7's stacks must fit a block's 232,448 bytes: 512 threads hold 113
+    entries each, not 114."""
+    _, sw = _ref_and_port(8)
+    o = torch.zeros((4, 3))
+    coef = mxu.mxu_stream(sw)
+
+    def run(stack, tile_s=32):
+        return mxu.trace_tiles_mxu(sw.nodes, coef, sw.inv_mats,
+                                   sw.inst_slots, o, o + 1.0, 0.0, 1e4, 8,
+                                   stack, tile_s)
+
+    run(113)
+    for stack, tile_s in ((114, 32), (0, 8), (10 ** 6, 1)):
+        with pytest.raises(ValueError, match="shared memory"):
+            run(stack, tile_s)
