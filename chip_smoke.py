@@ -7,8 +7,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
  0. the machine: nvidia-smi name and power limit, torch/CUDA/nvcc versions;
  1. build the CUDA kernels from csrc/ (one nvcc per source, sm_90a) and
     load them; print ptxas's registers, stack frame and spills of every
-    kernel, and fail if K4, K5, K7 or an instance of K6a has a stack frame
-    or spills;
+    kernel, and fail if K4, K5, K7 or an instance of K6a or K6b has a
+    stack frame or spills;
  2. the scene: ground cube + a deterministic ~82k-triangle displaced
     icosphere standing in for the bunny; its instanced scene BVH (the
     renderer's leaf size, 8) for traversal="wide" and its per-mesh trees
@@ -32,7 +32,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     emulate_formats, each on "pallas4" and "pallas" (the default frame
     also on "wide");
  6. the kernel lab: the kbench port's ray sets at 1280x720 over the model
-    scene's trees (leaf 8, 16, 32, 64); for each of 15 variants covering
+    scene's trees (leaf 8, 16, 32, 64); for each of 18 variants covering
     every flag, K6a / K6b / K7 against its plain version on 16,384 rays
     (hits, per-ray visit counts, the deepest stack against the walk's
     bound, times, bound), then, with the lab's launch counts set to 0 just
@@ -84,7 +84,8 @@ SLOT_OPS_MXU = 91   # linear form: 4 outputs x 10 FMAs, rcp, 3 mul, 7 cmp/add
 # reports in the JSON line, kbench frames per variant and ray set
 LAB_VARIANTS = ("base", "stats", "unordered", "npop1", "npop4", "lean_l16",
                 "defer_l64", "fold_l16", "pre_l64", "sub4_l64", "smem",
-                "tile16", "ls_lean_l16", "mxu32", "mxu16")
+                "tile16", "ls", "ls_lean", "ls_lean_l16", "ls_lean_smem16",
+                "mxu32", "mxu16")
 LAB_ROWS = {"K6a": "base", "K6b": "ls_lean_l16", "K7": "mxu32"}
 LAB_FRAMES = 10
 
@@ -138,7 +139,8 @@ def build_kernels():
               f"frame, {st} / {ld} bytes spill stores / loads")
     for k, key, n in (("K4", "trace_flat_pairs_kernel", 1),
                       ("K5", "trace_wide4_kernel", 1),
-                      ("K6a", "lab_kernel", 6), ("K7", "mxu_kernel", 1)):
+                      ("K6a", "lab_kernel", 6), ("K6b", "ls_kernel", 2),
+                      ("K7", "mxu_kernel", 1)):
         rows = [r for name, r in reports.items() if key in name]
         check(len(rows) == n and all(r[1:] == (0, 0, 0) for r in rows),
               f"{k}: {n} instance(s), no stack frame and no spills")
@@ -636,7 +638,8 @@ def lab_bound(bench, kw, o, d, t_max, t_min):
 def kernel_lab(dev, rng, card):
     """Phase 6.  Returns ({K6a, K6b, K7: row of the JSON line}, launches
     of K6a, K6b and K7 over kbench's run)."""
-    from raytracedggx_tpu_torch.ops.lab.fused_lab import stack_bound
+    from raytracedggx_tpu_torch.ops.lab.fused_lab import (ls_stack_bound,
+                                                          stack_bound)
     from raytracedggx_tpu_torch.scripts.kbench import (T_MIN_REFL,
                                                        VARIANT_KW, Bench,
                                                        kernel_of)
@@ -648,7 +651,8 @@ def kernel_lab(dev, rng, card):
         print(f"  leaf {leaf}: {s.num_nodes} nodes, depth {s.depth}, "
               f"reference stack {s.stack}, K1 stack bound {s.k1_stack}, "
               f"lab walk bound at npop 1 / 2 / 4 "
-              f"{[stack_bound(s.depth, p) for p in (1, 2, 4)]}")
+              f"{[stack_bound(s.depth, p) for p in (1, 2, 4)]}, K6b's "
+              f"{ls_stack_bound(s.depth)}")
     torch.cuda.synchronize()
     print(f"  kbench sets at {W}x{H}: primary {bench.o_p.shape[0]}, "
           f"reflection live {int((bench.t_r > 0).sum())}; set-up "

@@ -27,6 +27,27 @@
 //     (D - 2) = npop * (3D - 2) entries (npop = 1: 3D - 2, inside K1's
 //     3D + 1).  A full 4-ary tree whose boxes all pass reaches 3D - 2 at
 //     npop 1 and 6D - 8 at npop 2.
+//
+// K6b's bound (ops/lab/fused_lab.py:ls_stack_bound).  K6b pops n = min(2,
+// sp) entries per step, leaves among them: a popped leaf pushes nothing, a
+// popped node pushes its hit children, leaves included.  A leaf sits one
+// level below its parent, so levels run to D + 1.
+//   * The first two points above hold as they stand: a popped leaf only
+//     drops out of the pushes.
+//   * A level's entries have at most 2 parents, 8 entries.  Level 2 has
+//     the root alone, 4, and step 1 pops the root alone, so level 2 is
+//     the top when pushed.  A level stops being the top only when one of
+//     its nodes, popped while it is the top, pushes a deeper level; that
+//     step pops 2 of its entries (or all): below the top a level holds at
+//     most 8 - 2 = 6, level 2 at most 4 - 2 = 2.  A level pushed under a
+//     deeper one had 1 parent: 4.
+//   * With T <= D + 1 the deepest level, on top: 8 + 2 + 6 * (T - 3) =
+//     6T - 8 entries for T >= 2 (T = 2: the root's 4).  So 6D - 2.  A
+//     full 4-ary tree of depth D with leaf children at its bottom level,
+//     every box passing, reaches it.
+// (Counted the same way, K6a's walk holds at most 3D - 2, 6D - 8 and
+// 12D - 20 entries at npop 1, 2 and 4, which a full tree reaches; K6a and
+// K7 keep the looser npop * (3D - 2).)
 // A push onto a full stack is dropped, as in the plain version.
 
 #pragma once
@@ -36,7 +57,6 @@
 
 #include "ray.cuh"
 
-#define LAB_MAX_STACK 512  // K6b's per-thread stack in local memory
 #define LAB_TAG_SHIFT 20
 #define LAB_NODE_MASK 0xFFFFF
 

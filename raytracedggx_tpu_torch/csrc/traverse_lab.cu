@@ -45,22 +45,23 @@
 // kernel walked a 1024-ray packet over one shared stack, so its counters
 // were per packet; here each thread owns one ray and its own counters,
 // and coherence within a warp comes from the caller's ray order.  The lab
-// prices each flag against K1, so K6a carries K1's memory design and the
-// walk stays the lab's (the two-pop order is its subject):
+// prices each flag against K1, so K6a and K6b carry K1's memory design and
+// the walk stays the lab's (the two-pop order is its subject):
 //   * the stack in shared memory, [entry][thread], sized at launch from
-//     the walk's bound npop * (3 * depth - 2) (derived in lab.cuh) beside
-//     the staged rows; the pushes of the popped nodes wait in registers,
-//     so no array is indexed at run time in local memory (the first port
-//     kept a 512-entry stack, 2 KB of local memory per thread);
-//   * a node is nine 16-byte loads, from the staged rows or device memory;
-//     a slot three float4 of tris4, slot j + 1's loads out before slot j is
-//     tested, and the NaN v0 already loaded ends the leaf;
+//     the walk's bound beside the staged rows: npop * (3 * depth - 2) for
+//     K6a, 6 * depth - 2 for K6b (both derived in lab.cuh); the pushes of
+//     the popped nodes wait in registers, so no array is indexed at run
+//     time in local memory (the first port kept a 512-entry stack, 2 KB of
+//     local memory per thread);
+//   * a node is nine 16-byte loads, from the staged rows or device memory,
+//     issued before the ray's tag switch; a slot three float4 of tris4,
+//     slot j + 1's loads out before slot j is tested, and the NaN v0
+//     already loaded ends the leaf;
 //   * totals summed over the warp first, one pair of atomics per warp.
 // The lab flags were answers to TPU costs (vector-to-scalar extracts,
 // masked lane reductions, SMEM scalars); on this card they are re-priced
 // as what they become per thread.  K6b shares the leaf test, the node
-// loads and the totals; its own walk keeps a per-thread stack in local
-// memory.
+// loads, the stack and the totals; only its walk is its own.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -274,12 +275,18 @@ __global__ void __launch_bounds__(512) lab_kernel(const LabArgs a) {
 }
 
 // K6b: _ls_kernel.  Exact divide, no fold, pre, slim or noinst (the TPU
-// kernel has none of them either).  Its stack stays per thread in local
-// memory; dynamic shared memory holds only the staged rows.
+// kernel has none of them either).  Dynamic shared memory as K6a's:
+// smem_rows node rows, then stack_size entries per thread.  Each step pops
+// two entries (one at the last); a leaf runs its triangle tests, a node
+// its box tests against best_t as it stands after the first entry's visit,
+// and the nodes' hit children, leaves included, wait in registers until
+// both entries have been visited.
 template <bool FAT>
 __global__ void __launch_bounds__(512) ls_kernel(const LabArgs a) {
   extern __shared__ float4 lab_smem[];
   stage_nodes(a, lab_smem);
+  rtggx::SmemStack stack(reinterpret_cast<int*>(lab_smem + a.smem_rows * 9),
+                         a.stack_size);
   const int r = blockIdx.x * blockDim.x + threadIdx.x;
   unsigned n_box = 0, n_tri = 0;
 
@@ -288,46 +295,45 @@ __global__ void __launch_bounds__(512) ls_kernel(const LabArgs a) {
     Best b{a.t_max[r], 0.0f, 0.0f, -1, -1};
     int n_node = 0, n_leaf = 0;
     if (b.t >= 0.0f) {
-      int stack[LAB_MAX_STACK];
-      int sp = 0;
-      stack[sp++] = 0;
+      stack.push(0);
       int cur_tag = -1;
       rtggx::Ray ro;
-      while (sp > 0) {
-        const int top = sp;
-        const int n = top >= 2 ? 2 : 1;
-        sp -= n;
-        int pend[2][4], pcnt[2];
+      while (stack.sp > 0) {
+        const int top = stack.sp;
+        const int n = min(2, top);
+        stack.sp -= n;
+        rtggx::Pending<2> pend;
         for (int p = 0; p < n; ++p) {
-          const int e = stack[top - 1 - p];
+          const int e = stack.at(top - 1 - p);
           const int idx = e & LAB_NODE_MASK;
           const int tag = (e >> LAB_TAG_SHIFT) & 0x3FF;
-          if (tag != cur_tag) {
-            ro = lab_ray(a, tag, r);
-            cur_tag = tag;
-          }
-          pcnt[p] = 0;
           if (e & LAB_LEAF_BIT) {
+            if (tag != cur_tag) {
+              ro = lab_ray(a, tag, r);
+              cur_tag = tag;
+            }
             ++n_leaf;
             lab_leaf<false, FAT ? 1 : 0>(a, idx, tag, ro, b, n_box, n_tri);
             continue;
           }
+          // a node's row loads first: they do not wait for a tag switch.
+          // Each branch has its own switch so that the row is live only on
+          // a node's path: a row loaded before one shared switch stays live
+          // across the leaf test (113 registers against 92).
+          const rtggx::NodeRow row =
+              rtggx::load_row(a.nodes, lab_smem, a.smem_rows, idx);
+          if (tag != cur_tag) {
+            ro = lab_ray(a, tag, r);
+            cur_tag = tag;
+          }
           ++n_node;
           unsigned leaves, push;
           int4 ent;
-          rtggx::children(rtggx::load_row(a.nodes, lab_smem, a.smem_rows, idx),
-                          ro, a.t_min, b.t, false, ordered, tag, LAB_LEAF_BIT,
-                          leaves, ent, push, n_box);
-          const int ev[4] = {ent.x, ent.y, ent.z, ent.w};
-          int c = 0;
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-            if ((push >> k) & 1u) pend[p][c++] = ev[k];
-          pcnt[p] = c;
+          rtggx::children(row, ro, a.t_min, b.t, false, ordered, tag,
+                          LAB_LEAF_BIT, leaves, ent, push, n_box);
+          pend.put(p, ent, push);
         }
-        for (int p = n - 1; p >= 0; --p)
-          for (int i = 0; i < pcnt[p]; ++i)
-            if (sp < a.stack_size) stack[sp++] = pend[p][i];
+        pend.flush(n, stack);
       }
     }
     write_out<FAT ? 1 : 0>(a, r, b, false, false, n_node, n_leaf);
@@ -361,9 +367,9 @@ int launch_lab(int mode, int blocks, int threads, size_t smem,
 }  // namespace
 
 // smem_rows: node rows staged in shared memory per block (0: none);
-// stack_size: K6a's entries per thread in shared memory (the walk's bound),
-// K6b's in local memory (at most LAB_MAX_STACK).  K6a takes smem_rows * 144
-// + threads * stack_size * 4 bytes of shared memory per block.
+// stack_size: entries per thread in shared memory (the walk's bound).  A
+// block takes smem_rows * 144 + threads * stack_size * 4 bytes of shared
+// memory.
 extern "C" int rtggx_trace_lab(
     const void* nodes, int smem_rows, const void* tris4, const void* attrs,
     const void* boxes, int nq, const void* inv_mats, const void* pre,
@@ -373,9 +379,7 @@ extern "C" int rtggx_trace_lab(
     void* out_prim, void* out_inst, void* counts, void* totals,
     void* stream) {
   if (n_rays <= 0) return 0;
-  const bool ls = flags & LAB_LEAF_STACK;
-  if (stack_size < 1 || (ls && stack_size > LAB_MAX_STACK))
-    return (int)cudaErrorInvalidValue;
+  if (stack_size < 1) return (int)cudaErrorInvalidValue;
   LabArgs a;
   a.nodes = (const float4*)nodes;
   a.tris4 = (const float4*)tris4;
@@ -403,15 +407,13 @@ extern "C" int rtggx_trace_lab(
   a.counts = (int*)counts;
   a.totals = (unsigned long long*)totals;
   const int blocks = (n_rays + threads - 1) / threads;
-  const size_t rows = (size_t)smem_rows * 9 * sizeof(float4);
+  const size_t smem = (size_t)smem_rows * 9 * sizeof(float4) +
+                      (size_t)threads * stack_size * sizeof(int);
   cudaStream_t s = (cudaStream_t)stream;
-  if (ls)
-    return flags & LAB_FAT ? launch(ls_kernel<true>, blocks, threads, rows, s, a)
-                           : launch(ls_kernel<false>, blocks, threads, rows, s, a);
-  const size_t smem = rows + (size_t)threads * stack_size * sizeof(int);
+  if (flags & LAB_LEAF_STACK)
+    return flags & LAB_FAT ? launch(ls_kernel<true>, blocks, threads, smem, s, a)
+                           : launch(ls_kernel<false>, blocks, threads, smem, s, a);
   const int mode = nq > 0 ? 2 : ((flags & LAB_FAT) ? 1 : 0);
   return flags & LAB_RECIP ? launch_lab<true>(mode, blocks, threads, smem, s, a)
                            : launch_lab<false>(mode, blocks, threads, smem, s, a);
 }
-
-extern "C" int rtggx_lab_max_stack() { return LAB_MAX_STACK; }

@@ -66,7 +66,6 @@ SIGNATURES = {
     "rtggx_k1_max_stack": (),
     "rtggx_k4_max_stack": (),
     "rtggx_k5_max_stack": (),
-    "rtggx_lab_max_stack": (),
 }
 
 

@@ -34,12 +34,12 @@ What the TPU flags become when each thread owns one ray:
   smem_nodes  the first rows of the node table staged in shared memory per
               block (``SMEM_ROWS``: 256 rows, 36,864 bytes);
   tile_s      16 * tile_s threads per block (tile_s = 8: K1's 128);
-  stack       each ray's stack capacity.  K6a keeps it in shared memory
-              beside the staged rows: ``stack_bound`` of the tree's depth
-              and npop is the most the walk can need, and the wrapper
-              raises when 16 * tile_s * stack * 4 bytes and the rows
-              exceed a block's shared memory.  K6b keeps a stack in local
-              memory, at most ``rtggx_lab_max_stack`` (512) entries.
+  stack       each ray's stack capacity, in shared memory beside the
+              staged rows: ``stack_bound`` of the tree's depth and npop
+              (K6a) or ``ls_stack_bound`` of the depth (K6b) is the most
+              the walk can need, and the wrapper raises when 16 * tile_s
+              * stack * 4 bytes and the rows exceed a block's shared
+              memory.
 The plain version ignores recip, fold, pre, smem_nodes and tile_s, which
 change no output beyond rounding.  The kernels read the slots as the
 (S, 12) ``SceneWideBVH.tris4`` rows; the plain version takes the (S, 9)
@@ -78,6 +78,13 @@ def stack_bound(depth: int, npop: int) -> int:
     on a tree of ``depth`` levels (``SceneWideBVH.depth``): npop * (3 *
     depth - 2), derived in csrc/lab.cuh."""
     return max(1, int(npop) * (3 * int(depth) - 2))
+
+
+def ls_stack_bound(depth: int) -> int:
+    """The most entries K6b's walk (leaves on the stack, two pops per
+    step) can hold on a tree of ``depth`` levels (``SceneWideBVH.depth``):
+    6 * depth - 2, derived in csrc/lab.cuh."""
+    return max(1, 6 * int(depth) - 2)
 
 
 def check_smem(kernel, threads, stack, rows=0):
@@ -338,7 +345,8 @@ def trace_tiles_lab(nodes, tris4, inv_mats, ray_o, ray_d, t_min, t_max,
     """Lab launcher mirroring ops/fused.trace_tiles_instanced: closest hit
     of (R, 3) WORLD-space rays through K6a, or K6b with ``leaf_stack``.
     ``tris4``: the scene's (S, 12) slot rows; ``attrs``: its (S, 10) slot
-    table; ``stack``: K6a's ``stack_bound(sw.depth, npop)``; ``boxes``:
+    table; ``stack``: K6a's ``stack_bound(sw.depth, npop)``, K6b's
+    ``ls_stack_bound(sw.depth)``; ``boxes``:
     ``sub_tris(sw, sub)`` for the ``sub`` variant; ``totals``: optional
     (2,) int64 tensor the kernel adds its box and triangle tests to.
     Returns (t, u, v, nrm, prim, inst, st) with st the (R, 2) int32
@@ -364,8 +372,7 @@ def trace_tiles_lab(nodes, tris4, inv_mats, ray_o, ray_d, t_min, t_max,
     if leaf_stack and inv_mats.shape[0] > 1024:
         raise ValueError("leaf_stack entries carry a 10-bit tag")
     rows = min(nodes.shape[0], SMEM_ROWS) if smem_nodes else 0
-    if not leaf_stack:
-        check_smem("K6a", threads, stack, rows)
+    check_smem("K6b" if leaf_stack else "K6a", threads, stack, rows)
     t_max = per_ray(t_max, ray_o)
     if ray_o.device.type == "cpu":
         out = trace_lab_plain(nodes, float3_rows(tris4), attrs, inv_mats,
@@ -390,10 +397,6 @@ def trace_tiles_lab(nodes, tris4, inv_mats, ray_o, ray_d, t_min, t_max,
         require("boxes", boxes, (tris4.shape[0] // L, 6 * sub), f32, dev)
     if totals is not None:
         require("totals", totals, (2,), torch.int64, dev)
-    lib = load_library()
-    if leaf_stack and stack > lib.rtggx_lab_max_stack():
-        raise ValueError(f"stack {stack} exceeds K6b's "
-                         f"{lib.rtggx_lab_max_stack()}")
     opts = dict(ordered=ordered, fold=fold, pre=pre, slim=slim,
                 noinst=noinst, recip=recip, fat=not lean,
                 leaf_stack=leaf_stack)

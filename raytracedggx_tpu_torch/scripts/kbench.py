@@ -24,6 +24,14 @@ the mean over 32-ray warps of the warp's maximum (what a warp pays), and
 the totals.  A variant that fails or mismatches is reported, the others
 still run, and the script then exits non-zero.
 
+Each lab variant's stack holds the most its walk can need on the tree:
+``stack_bound`` for K6a and K7, ``ls_stack_bound`` (6 * depth - 2) for
+K6b.  The reference passes K6b three times the tree's ``stack``
+(scripts/kbench.py:208), room for leaves in its one SMEM stack with no
+bound derived; the port keeps each ray's stack in shared memory beside the
+staged rows, so it sizes K6b's from the bound (csrc/lab.cuh), which no
+walk on the tree exceeds.
+
     python -m raytracedggx_tpu_torch.scripts.kbench [frames] [variant...]
         [--device cpu]
 
@@ -312,13 +320,13 @@ class Bench:
 
     @staticmethod
     def stack(s, kw):
-        """Per-ray stack capacity: for K6a and K7 the bound of their walk
-        on the tree (``stack_bound``, npop 2 for K7); for K6b three times
-        the tree's ``stack`` (scripts/kbench.py:208)."""
-        from ..ops.lab.fused_lab import stack_bound
+        """Per-ray stack capacity: the bound of the variant's walk on the
+        tree (``stack_bound``, npop 2 for K7; ``ls_stack_bound`` for
+        K6b)."""
+        from ..ops.lab.fused_lab import ls_stack_bound, stack_bound
 
         if kw.get("leaf_stack"):
-            return s.stack * 3
+            return ls_stack_bound(s.depth)
         return stack_bound(s.depth, 2 if "mxu" in kw else kw.get("npop", 2))
 
     def launch(self, kw, o, d, t_max, stats=None, totals=None, t_min=0.0):

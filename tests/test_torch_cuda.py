@@ -395,6 +395,10 @@ LAB_CASES = {
     "K6b_lean": dict(leaf_stack=True, lean=True, stats=True),
     "K6b_fat_smem_t32": dict(leaf_stack=True, smem_nodes=True, tile_s=32,
                              stats=True),
+    "K6b_fat": dict(leaf_stack=True, stats=True),
+    "K6b_lean_smem_unordered_t2": dict(leaf_stack=True, lean=True,
+                                       smem_nodes=True, ordered=False,
+                                       tile_s=2, stats=True),
 }
 
 
@@ -428,7 +432,7 @@ def test_lab_kernels_match_plain(cuda, case):
     kw = LAB_CASES[case]
     sw = _model_bvh(cuda, 16)
     o, d, t_max = _model_rays(cuda)
-    stack = (sw.stack * 3 if kw.get("leaf_stack")
+    stack = (lab.ls_stack_bound(sw.depth) if kw.get("leaf_stack")
              else lab.stack_bound(sw.depth, kw.get("npop", 2)))
     boxes = lab.sub_tris(sw, kw["sub"]) if kw.get("sub") else None
     counter = lab.ls_kernel if kw.get("leaf_stack") else lab.lab_kernel
@@ -519,34 +523,41 @@ def _shifted(rows):
     return out
 
 
-def _full_tree(device, depth=5):
+def _full_tree(device, depth=5, leaves=False):
     """A full 4-ary tree of ``depth`` levels whose boxes all hold the
-    origin (the bottom level's children empty), one pad slot: every ray
-    from the origin pushes every internal child."""
+    origin (the bottom level's children empty, or with ``leaves`` each a
+    leaf of the one pad slot), one pad slot: every ray from the origin
+    pushes every internal child."""
     n = sum(4 ** k for k in range(depth))
+    inner = sum(4 ** k for k in range(depth - 1))
     nodes = torch.zeros((n, 36))
     nodes[:, :24] = torch.tensor([-1.0, -1.0, -1.0, 1.0, 1.0, 1.0] * 4)
-    for i in range(sum(4 ** k for k in range(depth - 1))):
+    for i in range(inner):
         nodes[i, 24:28] = 2.0
         nodes[i, 28:32] = torch.arange(4 * i + 1, 4 * i + 5,
                                        dtype=torch.float32)
+    if leaves:
+        nodes[inner:, 24:28] = 1.0
     tris = torch.full((1, 9), float("nan"))
     return tuple(x.to(device) for x in (
         nodes, tris, torch.full((1, 12), float("nan")), torch.zeros((1, 10)),
         torch.eye(4)[:, :3].reshape(1, 12)))
 
 
-@pytest.mark.parametrize("npop", [1, 2, 4])
+@pytest.mark.parametrize("npop", [1, 2, 4, "leaf_stack"])
 @pytest.mark.parametrize("half", [False, True])
 def test_lab_shared_stack_fills_and_drops_as_plain(cuda, npop, half):
     """K6a on a full tree of depth 5, where the walk's stack comes near
-    its bound (at npop 1 it reaches it), with the capacity at the bound
-    and at half of it (pushes onto the full stack dropped): per-ray node
-    visits equal the plain version's, at several thread counts of a
-    block."""
+    its bound (at npop 1 it reaches it), and K6b on the same tree with
+    leaves under its bottom nodes (where it reaches its bound), with the
+    capacity at the bound and at half of it (pushes onto the full stack
+    dropped): per-ray node and leaf visits equal the plain version's, at
+    several thread counts of a block."""
     from raytracedggx_tpu_torch.ops.lab import fused_lab as lab
 
-    nodes, tris, tris4, attrs, inv = _full_tree(cuda)
+    ls = npop == "leaf_stack"
+    npop = 2 if ls else npop
+    nodes, tris, tris4, attrs, inv = _full_tree(cuda, leaves=ls)
     rng = np.random.default_rng(npop)
     n = 1000
     d = rng.normal(size=(n, 3)).astype(np.float32)
@@ -554,26 +565,29 @@ def test_lab_shared_stack_fills_and_drops_as_plain(cuda, npop, half):
     o = torch.zeros((n, 3), device=cuda)
     d = torch.as_tensor(d, device=cuda)
     t_max = torch.where(torch.arange(n, device=cuda) % 5 == 0, -1.0, 1e4)
-    stack = lab.stack_bound(5, npop) // (2 if half else 1)
+    stack = ((lab.ls_stack_bound(5) if ls else lab.stack_bound(5, npop))
+             // (2 if half else 1))
     ref = lab.trace_lab_plain(nodes, tris, attrs, inv, o, d, 0.0, t_max, 1,
-                              stack, npop)
+                              stack, npop, leaf_stack=ls)
     assert int(ref[6][:, 2].max()) <= stack
+    if ls and not half:
+        assert int(ref[6][:, 2].max()) == stack
     for tile_s in (2, 8, 32):
         got = lab.trace_tiles_lab(nodes, tris4, inv, o, d, 0.0, t_max, 1,
                                   stack=stack, tile_s=tile_s, stats=True,
-                                  npop=npop, attrs=attrs)
+                                  npop=npop, leaf_stack=ls, attrs=attrs)
         torch.cuda.synchronize()
         assert torch.equal(got[6], ref[6][:, :2])
         assert not bool((got[4] >= 0).any())
 
 
 def test_lab_kernels_have_no_frame_or_spills(cuda):
-    """ptxas gives every K6a instance and K7 no stack frame and no spills
-    (their stacks sit in shared memory)."""
+    """ptxas gives every K6a and K6b instance and K7 no stack frame and no
+    spills (their stacks sit in shared memory)."""
     from raytracedggx_tpu_torch.ops import cuda_lib
 
     reports = cuda_lib.ptxas_reports(cuda_lib.build()[1])
-    for key, n in (("lab_kernel", 6), ("mxu_kernel", 1)):
+    for key, n in (("lab_kernel", 6), ("ls_kernel", 2), ("mxu_kernel", 1)):
         rows = [r for name, r in reports.items() if key in name]
         assert len(rows) == n and all(r[1:] == (0, 0, 0) for r in rows), \
             (key, rows)

@@ -2,7 +2,8 @@
 rehearsal: a tiny resolution and a coarse stand-in, the plain versions in
 place of the kernels.  It must run its variants, print their lines and
 exit 0; a failed variant must not leave the exit code 0; and without
-``--device cpu`` it refuses to run where there is no card."""
+``--device cpu`` it refuses to run where there is no card.  kpair's
+pairing runs here the same way."""
 
 import os
 import subprocess
@@ -60,3 +61,20 @@ def test_kbench_needs_a_card_by_default():
         kbench.main(["1", "base"])
     with pytest.raises(SystemExit):
         kbench.main(["1", "no_such_variant", "--device", "cpu"])
+
+
+def test_kpair_pairs_libraries_on_the_cpu(monkeypatch):
+    """kpair's rounds on the CPU, where every launch takes the plain
+    version whatever library it is routed through: one median per
+    library, outputs equal, and only K6a / K6b rows accepted."""
+    from raytracedggx_tpu_torch.ops.lab import fused_lab
+    from raytracedggx_tpu_torch.scripts import kpair
+
+    monkeypatch.setattr(fused_lab, "load_library", fused_lab.load_library)
+    bench = kbench.Bench("cpu", 64, 36, 3)
+    ms, same = kpair.pair(bench, kbench.VARIANT_KW["ls_lean"],
+                          ["a", "b", "c"], bench.o_r, bench.d_r, bench.t_r,
+                          kbench.T_MIN_REFL, 2)
+    assert same and len(ms) == 3 and min(ms) > 0
+    with pytest.raises(SystemExit, match="not a K6a / K6b row"):
+        kpair.main(["2", ".", "--variants", "ls", "mxu32"])

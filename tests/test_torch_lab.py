@@ -299,9 +299,10 @@ def test_walk_stays_inside_stack_bound(world, scene, npop):
     assert 1 < int(out[6][:, 2].max()) <= bound
 
 
-def _full_tree(depth):
+def _full_tree(depth, leaves=False):
     """A full 4-ary tree of ``depth`` levels whose boxes all hold the
-    origin, the bottom level's children empty, and one pad slot."""
+    origin, the bottom level's children empty (``leaves``: each a leaf of
+    the one pad slot), and one pad slot."""
     n = sum(4 ** k for k in range(depth))
     inner = sum(4 ** k for k in range(depth - 1))
     nodes = torch.zeros((n, 36))
@@ -310,6 +311,8 @@ def _full_tree(depth):
         nodes[i, 24:28] = 2.0
         nodes[i, 28:32] = torch.arange(4 * i + 1, 4 * i + 5,
                                        dtype=torch.float32)
+    if leaves:
+        nodes[inner:, 24:28] = 1.0
     tris = torch.full((1, 9), float("nan"))
     return nodes, tris, torch.zeros((1, 10)), torch.eye(4)[:, :3].reshape(
         1, 12)
@@ -332,10 +335,48 @@ def test_stack_bound_on_a_full_tree(npop, deepest):
         assert deepest == lab.stack_bound(4, 1)
 
 
+@pytest.mark.parametrize("depth", [1, 2, 3, 4])
+def test_ls_stack_bound_on_a_full_tree(depth):
+    """K6b (leaves on the stack) on a full 4-ary tree whose bottom nodes
+    hold 4 leaves each, every box passing: every node and leaf is visited
+    and the deepest stack is the bound 6D - 2 of csrc/lab.cuh, what K6a's
+    walk at npop 2 reaches on a full tree one level deeper."""
+    nodes, tris, attrs, inv = _full_tree(depth, leaves=True)
+    o = torch.zeros((1, 3))
+    d = torch.tensor([[0.3, -0.8, 0.5]])
+    n_nodes = sum(4 ** k for k in range(depth))
+    bound = lab.ls_stack_bound(depth)
+    for ordered in (True, False):
+        out = lab.trace_lab_plain(nodes, tris, attrs, inv, o, d, 0.0,
+                                  torch.tensor([1e4]), 1, 1000,
+                                  ordered=ordered, leaf_stack=True)
+        assert out[6][0].tolist() == [n_nodes, 4 ** depth, bound]
+        assert int(out[4][0]) == -1                    # pads only
+    # the leaves as one more level of nodes: K6a's deepest stack at npop 2
+    k6a = lab.trace_lab_plain(*_full_tree(depth + 1), o, d, 0.0,
+                              torch.tensor([1e4]), 1, 1000, 2)
+    assert int(k6a[6][0, 2]) == bound == 6 * depth - 2
+
+
+@pytest.mark.parametrize("scene", ["cubes", "nested", "model"])
+def test_ls_walk_stays_inside_stack_bound(world, scene):
+    """K6b's plain walk, run with one entry more than ``ls_stack_bound``
+    on a small scene, never exceeds the bound."""
+    sw, leaf = _bound_scene(scene, world)
+    bound = lab.ls_stack_bound(sw.depth)
+    o, d = _rand_rays(np.random.default_rng(11), N_RAYS)
+    t_max = torch.full((N_RAYS,), 1e4)
+    out = lab.trace_lab_plain(sw.nodes, sw.tris, sw.attrs, sw.inv_mats,
+                              torch.as_tensor(o), torch.as_tensor(d), 0.0,
+                              t_max, leaf, bound + 1, leaf_stack=True)
+    assert int((out[4] >= 0).sum()) > 0
+    assert 1 < int(out[6][:, 2].max()) <= bound
+
+
 def test_wrapper_raises_on_a_stack_beyond_shared_memory(world):
-    """K6a's stacks and staged rows must fit a block's 232,448 bytes: 512
-    threads hold 113 entries each, not 114, and not 113 beside the staged
-    rows; K6b's stack is not in shared memory."""
+    """K6a's and K6b's stacks and staged rows must fit a block's 232,448
+    bytes: 512 threads hold 113 entries each, not 114, and not 113 beside
+    the staged rows; K6b's bound fits beside them."""
     _, sw, o, d, t_max = world
     assert sw.num_nodes * lab.ROW_BYTES > 232448 - 512 * 113 * 4
 
@@ -345,12 +386,15 @@ def test_wrapper_raises_on_a_stack_beyond_shared_memory(world):
                                    torch.as_tensor(d[:8]), 0.0, 1e4, L,
                                    attrs=sw.attrs, tile_s=tile_s, **kw)
 
-    run(stack=113)
-    run(stack=384, leaf_stack=True, smem_nodes=True)
-    for kw in (dict(stack=114), dict(stack=113, smem_nodes=True),
-               dict(stack=0), dict(stack=10 ** 6, tile_s=1)):
-        with pytest.raises(ValueError, match="shared memory"):
-            run(**kw)
+    for ls in (False, True):
+        run(stack=113, leaf_stack=ls)
+        for kw in (dict(stack=114), dict(stack=113, smem_nodes=True),
+                   dict(stack=0), dict(stack=10 ** 6, tile_s=1)):
+            with pytest.raises(ValueError, match="shared memory"):
+                run(leaf_stack=ls, **kw)
+    run(stack=lab.ls_stack_bound(sw.depth), leaf_stack=True, smem_nodes=True)
+    with pytest.raises(ValueError, match="K6b"):
+        run(stack=384, leaf_stack=True, smem_nodes=True)
 
 
 def test_ptxas_reports_reads_each_kernel():
