@@ -7,8 +7,9 @@ Phases (each prints its own lines; any failure ends the run non-zero):
  0. the machine: nvidia-smi name and power limit, torch/CUDA/nvcc versions;
  1. build the CUDA kernels from csrc/ (one nvcc per source, sm_90a) and
     load them; print ptxas's registers, stack frame and spills of every
-    kernel, and fail if K4, K5, K7 or an instance of K6a or K6b has a
-    stack frame or spills;
+    kernel, and fail if one of K1's 3 instances (lean, slim K1s, fat K1f),
+    K1e, K4, K5, K7 or an instance of K6a or K6b has a stack frame or
+    spills;
  2. the scene: ground cube + a deterministic ~82k-triangle displaced
     icosphere standing in for the bunny; its instanced scene BVH (the
     renderer's leaf size, 8) for traversal="wide" and its per-mesh trees
@@ -17,8 +18,15 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     the frame gives it: K1 at the renderer's leaf size and at 64 on the
     frame's two full waves (921,600 primary rays in screen-block order,
     921,600 sorted reflection rays, as the renderer hands them to K1), on
-    16,384 rays drawn from them, and on the 9-instance nested scene; K4 and
-    K5 in the model instance's object space on 16,384 rays of the frame
+    16,384 rays drawn from them, and on the 9-instance nested scene; K1s
+    and K1f at the renderer's leaf size on the check rays and both full
+    waves, against their plain versions and against lean K1 on the card
+    (hits, slot / prim and inst exact, t at rtol 1e-6; u, v and the
+    normal after the slim recompute at atol 1e-4, the fat normal at atol
+    1e-5, its u, v equal to lean's), and K1e, the slim recompute, on K1s's
+    slot and inst against lean K1's u, v and against its plain version
+    within 4 eps times each ray's float32 condition (``uv_condition``); K4
+    and K5 in the model instance's object space on 16,384 rays of the frame
     and on the frame's two full waves (one plain run per wave, compared by
     triangle id), and through their per-instance loop on the nested
     scene; K2/K3 on 1280x720 G-buffers, both axes;
@@ -27,6 +35,14 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     10 at metallic 0.5), then "pallas4" and "pallas" (3 warm-up, 20 timed,
     then 5 at metallic 0.5); then "wide" at kernels="xla" (K1 launched,
     the filters' plain passes), and after set_kernels("auto") K2 again;
+    then the knobs: "wide" with trace_slim (K1s in every wave, no lean K1)
+    and with sort_anchor=32, sort_dir_bits=6, paired with the default
+    "wide" frame in one run (3 warm-up, 20 timed frames each in two halves
+    in the order default, slim, anchor, anchor, slim, default, then 5 at
+    metallic 0.5), each frame held against the default frame of the same
+    step at the golden bar (max 0.02, mean 0.002); last, K1f's API path,
+    build_scene_wide(lean=False) and trace_scene_wide_fused over the
+    frame's two waves;
  5. the golden cube scene at 96x54, 3 frames, against the JAX package's
     frozen PNGs: the default frame and bary_mode="ndc" with
     emulate_formats, each on "pallas4" and "pallas" (the default frame
@@ -40,11 +56,14 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     full sets with its gate against K1; then K7 and K1 on kbench's
     reflection set from t_min 0, where every ray on which they differ
     beyond the gate must have its nearer t below kbench's t_min (a re-hit
-    of the ray's own start triangle); last, the bound of each JSON row's
-    lab variant on kbench's two full sets.
+    of the ray's own start triangle); the bound of each JSON row's lab
+    variant on kbench's two full sets; last, anchorbench's three orders of
+    kbench's reflection set at leaf 8 and 64 (K1 ms, K6a visits per warp,
+    K1's t after un-permutation within kbench's gate).
 The second-to-last line is a JSON summary of the kernels (launches on
-their path, parity error, kernel / plain times, the bound; K1's, K4's and
-K5's times are of the full primary wave, K2's and K3's of the row pass);
+their path, parity error, kernel / plain times, the bound; K1's, K1s',
+K1f's, K4's and K5's times are of the full primary wave, K2's and K3's of
+the row pass);
 the last line is {"ok": true, "device": {...}}.  Needs CUDA: without it
 this exits non-zero and prints no result.  Imports nothing of JAX or the
 JAX package.
@@ -70,6 +89,12 @@ W, H = 1280, 720
 TIMED_FRAMES = 60
 METAL_FRAMES = 10
 PER_MESH_TIMED, PER_MESH_METAL = 20, 5
+KNOB_TIMED, KNOB_METAL = 20, 5      # the knob paths' frames, per path
+FAT_REPS = 10                       # K1f's API path: passes over both waves
+ANCHOR_FRAMES = 5                   # anchorbench's launches per order
+# the launch counters, in the order of every per-frame list below
+COUNTED = ("K1", "K1s", "K1f", "K1e", "K2", "K3", "K4", "K5")
+F32_EPS = 2.0 ** -23
 K1_RAYS = 16384
 K1_LEAVES = (8, 64)     # the renderer's leaf size (checked), and the old one
 T_MIN_SECONDARY = 1e-5
@@ -137,7 +162,9 @@ def build_kernels():
     for name, (regs, frame, st, ld) in reports.items():
         print(f"  ptxas {name}: {regs} registers, {frame} bytes stack "
               f"frame, {st} / {ld} bytes spill stores / loads")
-    for k, key, n in (("K4", "trace_flat_pairs_kernel", 1),
+    for k, key, n in (("K1", "trace_instanced_kernel", 3),
+                      ("K1e", "slim_uv_kernel", 1),
+                      ("K4", "trace_flat_pairs_kernel", 1),
                       ("K5", "trace_wide4_kernel", 1),
                       ("K6a", "lab_kernel", 6), ("K6b", "ls_kernel", 2),
                       ("K7", "mxu_kernel", 1)):
@@ -254,6 +281,176 @@ def k1_check(name, sw, o, d, t_max, t_min=0.0, reps=20):
           f"{bound_ms:.6f} ms ({bound_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by)
+
+
+def k1_modes_check(name, sw, o, d, t_max, t_min=0.0, reps=20):
+    """K1s and K1f on rays (o, d, t_max) from t_min: each against its plain
+    version (the traversal bar; once, timed on that run) and against lean
+    K1 on the card: hit mask, slot (K1f: prim) and inst exact, t at rtol
+    1e-6; K1s' u, v and normal after trace_scene_wide_fused's recompute at
+    atol 1e-4 of lean's; K1f's u, v equal to lean's (the same walk and
+    leaf test) and its normal at atol 1e-5 of lean's.  Returns
+    {"K1s" | "K1f" | "K1e": dict(max_abs_err, ms, plain_ms, bound_ms,
+    bound_by)} (K1e: ``k1e_check`` on K1s' slot and inst); the bound
+    counts 12 (K1s) or 32 (K1f, which also reads attrs) output bytes per
+    ray."""
+    from raytracedggx_tpu_torch.ops.fused import (attrs4_rows,
+                                                  trace_instanced_plain,
+                                                  trace_tiles_instanced)
+    from raytracedggx_tpu_torch.ops.scene_wide import trace_scene_wide_fused
+
+    args = (sw.nodes, sw.tris4, sw.inv_mats, sw.inst_slots, o, d, t_min,
+            t_max, sw.leaf_size, sw.k1_stack)
+    lean = trace_tiles_instanced(*args)
+    rec_l, n_l = trace_scene_wide_fused(sw, o, d, t_min, t_max)
+    hit = lean[3] >= 0
+    modes = {"K1s": (dict(slim=True), dict(slim=True), 12, ()),
+             "K1f": (dict(lean=False, attrs4=attrs4_rows(sw.attrs)),
+                     dict(lean=False, attrs=sw.attrs), 32, (sw.attrs,))}
+    rows = {}
+    for key, (kw, plain_kw, out_bytes, extra) in modes.items():
+        label = f"{key} L{sw.leaf_size} {name}"
+
+        def kern(stats=None):
+            return trace_tiles_instanced(*args, stats, **kw)
+
+        ref, plain_ms = timed_once(lambda: trace_instanced_plain(
+            sw.tris, sw.inv_mats, sw.inst_slots, o, d, t_min, t_max,
+            **plain_kw))
+        got = kern()
+        torch.cuda.synchronize()
+        g_t, g_id, g_inst = got[0], got[-2], got[-1]
+        err = hold_hits(label, (g_t, g_id, g_inst),
+                        (ref[0], ref[-2], ref[-1]), t_max)
+        del ref
+        id_name, want_id = (("slot", lean[3]) if key == "K1s" else
+                            ("prim", rec_l.prim.to(torch.int32)))
+        same = ((g_id >= 0) == hit).all() and (g_id == want_id).all() \
+            and (g_inst == lean[4]).all()
+        dt = (g_t - lean[0]).abs()
+        check(bool(same) and bool((dt <= 1e-6 * lean[0].abs()).all()),
+              f"{label}: against lean K1, hit mask, {id_name} and inst "
+              f"exact, t at rtol 1e-6 ({int(hit.sum())} hits, max |dt| "
+              f"{float(dt.max()):.3e})")
+        if key == "K1s":
+            rec_s, n_s = trace_scene_wide_fused(sw, o, d, t_min, t_max,
+                                                slim=True)
+            diffs = [float((a - b)[hit].abs().max()) if hit.any() else 0.0
+                     for a, b in ((rec_s.u, rec_l.u), (rec_s.v, rec_l.v),
+                                  (n_s, n_l))]
+            check(max(diffs) <= 1e-4, f"{label}: u, v and normal after the "
+                  f"recompute at atol 1e-4 of lean K1's (max "
+                  f"{diffs[0]:.3e}, {diffs[1]:.3e}, {diffs[2]:.3e})")
+            rows["K1e"] = k1e_check(name, sw, o, d, got[1], got[2], lean,
+                                    reps)
+        else:
+            # the same walk and tri_hit as lean: u, v equal bit for bit
+            same_uv = torch.equal(got[1], lean[1]) and torch.equal(got[2],
+                                                                   lean[2])
+            dn = float((got[3] - n_l)[hit].abs().max()) if hit.any() else 0.0
+            check(same_uv and dn <= 1e-5, f"{label}: u, v equal to lean "
+                  f"K1's on all {o.shape[0]} rays ({same_uv}), normal at "
+                  f"atol 1e-5 of lean's (max {dn:.3e})")
+        stats = torch.zeros(2, dtype=torch.int64, device=o.device)
+        kern(stats)
+        bound_ms, bound_by = trace_bound(
+            (sw.nodes, sw.tris, sw.inv_mats, o, d, t_max, *extra),
+            o.shape[0], out_bytes, stats)
+        ms = cuda_ms(kern, reps)
+        print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound_ms:.6f} ms ({bound_by})")
+        rows[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by=bound_by)
+    return rows
+
+
+def uv_condition(sw, o, d, slot, inst):
+    """Per ray, the scale of a float32 Moller-Trumbore's rounding error in
+    u and in v, in float64 from the rows K1e reads: each rounding is at
+    most eps times the magnitude of what it rounds, carried to u = (tv .
+    pv) / det and v = (d . qv) / det through the object-space ray o*M + T,
+    tv = o - v0, pv = d x e2, qv = tv x e1 and det = e1 . pv (first order).
+    It grows as |tv| / (|e1| cos) on grazing hits.  0 where slot < 0."""
+    hit = slot >= 0
+    geo = sw.tris[slot.clamp(min=0).long()].double()
+    m = sw.inv_mats[(inst.long() + 1).clamp(0, sw.inv_mats.shape[0] - 1)]
+    M, T = m[:, :9].double().reshape(-1, 3, 3), m[:, 9:].double()
+    o64, d64 = o.double(), d.double()
+    o_obj = torch.einsum("rj,rja->ra", o64, M) + T
+    d_obj = torch.einsum("rj,rja->ra", d64, M)
+    v0, e1, e2 = geo[:, 0:3], geo[:, 3:6], geo[:, 6:9]
+
+    def n(x):
+        return torch.linalg.norm(x, dim=-1)
+
+    a_o = n(torch.einsum("rj,rja->ra", o64.abs(), M.abs()) + T.abs())
+    a_d = n(torch.einsum("rj,rja->ra", d64.abs(), M.abs()))
+    pv = torch.linalg.cross(d_obj, e2)
+    tv = o_obj - v0
+    qv = torch.linalg.cross(tv, e1)
+    det = (e1 * pv).sum(-1).abs()
+    u = (tv * pv).sum(-1) / det
+    v = (d_obj * qv).sum(-1) / det
+    a_tv = a_o + n(v0) + n(tv)                 # o*M + T, then - v0
+    a_pv = a_d * n(e2)                         # d*M, then x e2
+    a_det = n(e1) * a_pv
+    ku = (a_tv * n(pv) + n(tv) * a_pv + u.abs() * a_det) / det
+    kv = (a_d * n(tv) * n(e1) + n(d_obj) * a_tv * n(e1)
+          + v.abs() * a_det) / det
+    zero = torch.zeros_like(ku)
+    return (torch.where(hit, ku, zero).float(),
+            torch.where(hit, kv, zero).float())
+
+
+def k1e_check(name, sw, o, d, slot, inst, lean, reps=20):
+    """K1e (K1s's epilogue) on K1s's slot and inst: against lean K1's u, v
+    (the walk's arithmetic: expected bit for bit, held at atol 1e-4), and
+    against its plain version, an independent float32 recompute, within 4
+    eps times each ray's ``uv_condition``.  Returns the JSON row's dict;
+    the bound reads each ray's origin, direction, slot and inst, the
+    inverse worlds once and each hit's slot row (at most the (S, 9) table
+    once), and writes u, v; 33 + 51 operations per hit (the object-space
+    ray and Moller-Trumbore).  The plain version is timed over 3 runs."""
+    from raytracedggx_tpu_torch.ops.fused import slim_uv, slim_uv_plain
+
+    label = f"K1e L{sw.leaf_size} {name}"
+
+    def kern():
+        return slim_uv(sw.tris4, sw.inv_mats, o, d, slot, inst)
+
+    def plain():
+        return slim_uv_plain(sw.tris, sw.inv_mats, o, d, slot, inst)
+
+    p_u, p_v = plain()
+    plain_ms = cuda_ms(plain, 3)
+    u, v = kern()
+    torch.cuda.synchronize()
+    hit = slot >= 0
+    exact = torch.equal(u, lean[1]) and torch.equal(v, lean[2])
+    d_l = max(float((u - lean[1]).abs().max()), float((v - lean[2]).abs()
+                                                        .max()))
+    check(d_l <= 1e-4, f"{label}: u, v at atol 1e-4 of lean K1's on "
+          f"{int(hit.sum())} hits (max {d_l:.3e}; bit for bit: {exact})")
+    ku, kv = uv_condition(sw, o, d, slot, inst)
+    eu, ev = (u - p_u).abs(), (v - p_v).abs()
+    ok = (eu <= 1e-6 + 4 * F32_EPS * ku) & (ev <= 1e-6 + 4 * F32_EPS * kv)
+    tight = float(((eu <= 1e-4) & (ev <= 1e-4))[hit].float().mean()) \
+        if hit.any() else 1.0
+    err = max(float(eu.max()), float(ev.max()))
+    check(bool(ok.all()), f"{label}: against its plain version within 4 "
+          f"eps x the float32 condition (max |du| {float(eu.max()):.3e}, "
+          f"|dv| {float(ev.max()):.3e}; within 1e-4 on {tight:.5f} of hits; "
+          f"largest condition {float(torch.maximum(ku, kv).max()):.4g})")
+    n_hit, R = int(hit.sum()), o.shape[0]
+    tables = (min(sw.tris.numel() * 4, n_hit * 36)
+              + sw.inv_mats.numel() * 4)
+    bound_ms, bound_by = bound(R * (24 + 8 + 8) + tables,
+                               (33 + TRI_OPS) * n_hit)
+    ms = cuda_ms(kern, reps)
+    print(f"  {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{bound_ms:.6f} ms ({bound_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def per_mesh_check(name, tree, kernel, o, d, t_min, t_max, inv):
@@ -406,15 +603,28 @@ def spatial_check(aux_out, width, height):
 
 # ---------------------------------------------------------------- phase 4
 def counters():
-    """The launch counters of K1..K5, in that order."""
-    from raytracedggx_tpu_torch.ops.fused import trace_tiles_instanced
+    """(wrapper, attribute) of each launch counter, in COUNTED's order:
+    K1's lean, slim and fat modes, K1s's epilogue K1e, then K2..K5."""
+    from raytracedggx_tpu_torch.ops.fused import slim_uv, trace_tiles_instanced
     from raytracedggx_tpu_torch.ops.spatial_cuda import (diffuse_pass,
                                                          reflection_pass)
     from raytracedggx_tpu_torch.ops.traverse_cuda import trace_tiles_flat
     from raytracedggx_tpu_torch.ops.wide import trace_tiles4
 
-    return (trace_tiles_instanced, reflection_pass, diffuse_pass,
-            trace_tiles_flat, trace_tiles4)
+    return ((trace_tiles_instanced, "launches"),
+            (trace_tiles_instanced, "launches_slim"),
+            (trace_tiles_instanced, "launches_fat"), (slim_uv, "launches"),
+            (reflection_pass, "launches"), (diffuse_pass, "launches"),
+            (trace_tiles_flat, "launches"), (trace_tiles4, "launches"))
+
+
+def zero_counts():
+    for fn, attr in counters():
+        setattr(fn, attr, 0)
+
+
+def read_counts():
+    return [getattr(fn, attr) for fn, attr in counters()]
 
 
 def drive_path(renderer, label, timed, metal_frames, per_frame,
@@ -422,7 +632,7 @@ def drive_path(renderer, label, timed, metal_frames, per_frame,
     """One path at its config: 3 warm-up frames, then ``timed`` frames and
     ``metal_frames`` at metallic 0.5 between CUDA events, with every
     launch count set to 0 just before and read just after.  per_frame:
-    the expected K1..K5 launches per frame of each part."""
+    the expected launches per frame of each part, in COUNTED's order."""
     state = renderer.init_state()
     for _ in range(3):
         state, frame, aux = renderer.step(state)
@@ -430,9 +640,7 @@ def drive_path(renderer, label, timed, metal_frames, per_frame,
     metal = aux["rough_metal"][..., 1]
     rays = W * H + int(hit.sum()) + int((hit & (metal < 1.0)).sum())
     torch.cuda.synchronize()
-    fns = counters()
-    for fn in fns:
-        fn.launches = 0
+    zero_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -441,14 +649,15 @@ def drive_path(renderer, label, timed, metal_frames, per_frame,
     end.record()
     end.synchronize()
     ms = start.elapsed_time(end) / timed
-    counts = [fn.launches for fn in fns]
+    counts = read_counts()
     print(f"  {label}: {ms:.4f} ms/frame, {rays} live rays/frame, "
           f"{rays / ms / 1e3:.4f} Mrays/s over {timed} frames ({card})")
     f = frame.float()
     check(bool(torch.isfinite(f).all()) and float(f.std()) > 1e-3,
           f"{label}: frame finite and not constant (std {float(f.std()):.4f})")
     check(counts == [n * timed for n in per_frame],
-          f"{label}: launches K1..K5 {counts} = {per_frame} per frame")
+          f"{label}: launches {'/'.join(COUNTED)} {counts} = {per_frame} "
+          f"per frame")
 
     for mesh_idx in (0, 1):
         renderer.set_metallic(mesh_idx, 0.5)
@@ -458,7 +667,7 @@ def drive_path(renderer, label, timed, metal_frames, per_frame,
     end.record()
     end.synchronize()
     ms_metal = start.elapsed_time(end) / metal_frames
-    total = [fn.launches for fn in fns]
+    total = read_counts()
     delta = [a - b for a, b in zip(total, counts)]
     print(f"  {label} metallic 0.5: {ms_metal:.4f} ms/frame over "
           f"{metal_frames} frames ({card})")
@@ -466,24 +675,23 @@ def drive_path(renderer, label, timed, metal_frames, per_frame,
     check(bool(torch.isfinite(f).all()) and float(f.std()) > 1e-3,
           f"{label}: metallic 0.5 frame finite and not constant")
     check(delta == [n * metal_frames for n in per_frame_metal],
-          f"{label}: launches K1..K5 {delta} = {per_frame_metal} per frame "
-          f"at metallic 0.5")
+          f"{label}: launches {'/'.join(COUNTED)} {delta} = "
+          f"{per_frame_metal} per frame at metallic 0.5")
     return dict(ms=ms, ms_metal=ms_metal, rays=rays, launches=total)
 
 
 def kernels_switch_check(scene, dev, card, frames=3):
     """kernels="xla" swaps only the spatial filters for their plain
     passes: "wide" frames still launch K1 (2 per frame) and no K2 or K3;
-    set_kernels("auto") brings K2 back from the next frame on."""
+    set_kernels("auto") brings K2 back from the next frame on.  Counts in
+    COUNTED's order."""
     from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
 
     r = Renderer(scene, config=RenderConfig(width=W, height=H,
                                             kernels="xla"), device=dev)
     state, _, _ = r.step(r.init_state())
     torch.cuda.synchronize()
-    fns = counters()
-    for fn in fns:
-        fn.launches = 0
+    zero_counts()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -491,21 +699,149 @@ def kernels_switch_check(scene, dev, card, frames=3):
         state, frame, _ = r.step(state)
     end.record()
     end.synchronize()
-    counts = [fn.launches for fn in fns]
+    counts = read_counts()
     print(f"  wide, kernels='xla': {start.elapsed_time(end) / frames:.4f} "
           f"ms/frame over {frames} frames ({card})")
     f = frame.float()
     check(bool(torch.isfinite(f).all()) and float(f.std()) > 1e-3,
           "kernels='xla': frame finite and not constant")
-    check(counts == [2 * frames, 0, 0, 0, 0], f"kernels='xla': launches "
-          f"K1..K5 {counts} = [2, 0, 0, 0, 0] per frame")
+    want = [2, 0, 0, 0, 0, 0, 0, 0]
+    check(counts == [n * frames for n in want], f"kernels='xla': launches "
+          f"{'/'.join(COUNTED)} {counts} = {want} per frame")
     r.set_kernels("auto")
-    for fn in fns:
-        fn.launches = 0
+    zero_counts()
     r.step(state)
-    counts = [fn.launches for fn in fns]
-    check(counts == [2, 2, 0, 0, 0], f"set_kernels('auto'): launches K1..K5 "
-          f"{counts} = [2, 2, 0, 0, 0] in the next frame")
+    counts = read_counts()
+    want = [2, 0, 0, 0, 2, 0, 0, 0]
+    check(counts == want, f"set_kernels('auto'): launches "
+          f"{'/'.join(COUNTED)} {counts} = {want} in the next frame")
+
+
+def knob_paths(scene, dev, card, width=W, height=H):
+    """The renderer's knobs on "wide" beside the default frame,
+    each renderer fresh: 3 warm-up frames each, then KNOB_TIMED frames in
+    two halves in the order default, slim, anchor, anchor, slim, default,
+    then KNOB_METAL at metallic 0.5, every block between CUDA events with
+    the launch counts set to 0 just before and read just after.  Every
+    frame is held against the default frame of the same step at the
+    golden bar (max 0.02, mean 0.002).  Returns {path: dict(ms, ms_metal,
+    max_diff, mean_diff, identical, launches)}."""
+    from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
+
+    size = dict(width=width, height=height)
+    paths = {  # config, launches per frame, and at metallic 0.5
+        "default": (RenderConfig(**size), [2, 0, 0, 0, 2, 0, 0, 0],
+                    [3, 0, 0, 0, 2, 2, 0, 0]),
+        "trace_slim": (RenderConfig(trace_slim=True, **size),
+                       [0, 2, 0, 2, 2, 0, 0, 0], [0, 3, 0, 3, 2, 2, 0, 0]),
+        "sort_anchor": (RenderConfig(sort_anchor=32, sort_dir_bits=6,
+                                     **size),
+                        [2, 0, 0, 0, 2, 0, 0, 0], [3, 0, 0, 0, 2, 2, 0, 0]),
+    }
+    rs, states, frames, ms = {}, {}, {}, {}
+    launches = {k: [0] * len(COUNTED) for k in paths}
+    for k, (cfg, _, _) in paths.items():
+        t0 = time.perf_counter()
+        rs[k] = Renderer(scene, config=cfg, device=dev)
+        states[k] = rs[k].init_state()
+        for _ in range(3):
+            states[k], _, _ = rs[k].step(states[k])
+        torch.cuda.synchronize()
+        print(f"  {k}: set-up and 3 warm-up frames "
+              f"{time.perf_counter() - t0:.3f} s")
+        frames[k], ms[k] = [], []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def block(k, n, per_frame):
+        zero_counts()
+        start.record()
+        for _ in range(n):
+            states[k], frame, _ = rs[k].step(states[k])
+            frames[k].append(frame)
+        end.record()
+        end.synchronize()
+        counts = read_counts()
+        check(counts == [c * n for c in per_frame], f"{k}: launches "
+              f"{'/'.join(COUNTED)} {counts} = {per_frame} per frame")
+        launches[k] = [a + b for a, b in zip(launches[k], counts)]
+        return start.elapsed_time(end) / n
+
+    half = KNOB_TIMED // 2
+    for k in list(paths) + list(paths)[::-1]:
+        ms[k].append(block(k, half, paths[k][1]))
+    ms_metal = {}
+    for k in paths:
+        for mesh_idx in (0, 1):
+            rs[k].set_metallic(mesh_idx, 0.5)
+        ms_metal[k] = block(k, KNOB_METAL, paths[k][2])
+    res = {}
+    for k in paths:
+        res[k] = dict(ms=float(np.mean(ms[k])), ms_metal=ms_metal[k],
+                      launches=launches[k])
+        print(f"  {k}: {res[k]['ms']:.4f} ms/frame (halves "
+              f"{ms[k][0]:.4f}, {ms[k][1]:.4f}) over {KNOB_TIMED} frames, "
+              f"metallic 0.5 {ms_metal[k]:.4f} ms/frame over {KNOB_METAL} "
+              f"({card})")
+        f = frames[k][-1].float()
+        check(bool(torch.isfinite(f).all()) and float(f.std()) > 1e-3,
+              f"{k}: frame finite and not constant")
+        if k == "default":
+            continue
+        diffs = [(a.clamp(0, 1) - b.clamp(0, 1)).abs()
+                 for a, b in zip(frames[k], frames["default"])]
+        worst = max(float(x.max()) for x in diffs)
+        mean = max(float(x.mean()) for x in diffs)
+        same = sum(bool((x == 0).all()) for x in diffs)
+        res[k].update(max_diff=worst, mean_diff=mean, identical=same)
+        check(worst < 0.02 and mean < 0.002, f"{k}: each of {len(diffs)} "
+              f"frames against the default frame of its step, max diff "
+              f"{worst:.6g} < 0.02, mean at most {mean:.6g} < 0.002; "
+              f"{same} frames identical")
+    return res
+
+
+def fat_path_check(renderer, worlds, waves):
+    """K1f through its API path: build_scene_wide(lean=False) and
+    trace_scene_wide_fused over the frame's two waves, FAT_REPS times,
+    with the launch counts set to 0 just before and read just after (K1f
+    twice per pass, nothing else), its results held against the lean
+    tree's on the same waves: hit mask, prim, inst, u and v exact, t at
+    rtol 1e-6, the normal at atol 1e-5.  Returns K1f's launches."""
+    from raytracedggx_tpu_torch.ops.scene_wide import (build_scene_wide,
+                                                       refit_scene_wide,
+                                                       trace_scene_wide_fused)
+
+    sw = renderer.swide
+    sw_f = build_scene_wide(renderer.geom, renderer.scene.mesh_ids,
+                            leaf_size=sw.leaf_size, worlds=worlds,
+                            device=renderer.device, lean=False)
+    sw_l = refit_scene_wide(sw, worlds)
+    torch.cuda.synchronize()
+    zero_counts()
+    for _ in range(FAT_REPS):
+        outs = [trace_scene_wide_fused(sw_f, *w) for w in waves]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = [0, 0, 2 * FAT_REPS, 0, 0, 0, 0, 0]
+    check(counts == want, f"K1f API path: launches {'/'.join(COUNTED)} "
+          f"{counts} = {want} over {FAT_REPS} passes of both waves")
+    for label, w, (rec, nrm) in zip(("primary", "reflection"), waves, outs):
+        ref, n_ref = trace_scene_wide_fused(sw_l, *w)
+        h = ref.hit
+        same = bool((rec.hit == h).all() and (rec.prim == ref.prim).all()
+                    and (rec.inst == ref.inst).all())
+        dt = float((rec.t - ref.t).abs().max())
+        same_uv = torch.equal(rec.u, ref.u) and torch.equal(rec.v, ref.v)
+        dn = float((nrm - n_ref)[h].abs().max()) if h.any() else 0.0
+        check(same and same_uv and bool(((rec.t - ref.t).abs()
+                                         <= 1e-6 * ref.t.abs()).all())
+              and dn <= 1e-5,
+              f"K1f API path, {label} wave: {int(h.sum())} hits, hit mask, "
+              f"prim, inst, u and v exact, t at rtol 1e-6 (max |dt| "
+              f"{dt:.3e}), normal at atol 1e-5 (max {dn:.3e}) of the lean "
+              f"tree's")
+    return counts[2]
 
 
 # ---------------------------------------------------------------- phase 5
@@ -637,7 +973,7 @@ def lab_bound(bench, kw, o, d, t_max, t_min):
 
 def kernel_lab(dev, rng, card):
     """Phase 6.  Returns ({K6a, K6b, K7: row of the JSON line}, launches
-    of K6a, K6b and K7 over kbench's run)."""
+    of K6a, K6b and K7 over kbench's run, kbench's Bench)."""
     from raytracedggx_tpu_torch.ops.lab.fused_lab import (ls_stack_bound,
                                                           stack_bound)
     from raytracedggx_tpu_torch.scripts.kbench import (T_MIN_REFL,
@@ -702,7 +1038,23 @@ def kernel_lab(dev, rng, card):
                                            t_max, t_min)
             print(f"  {k} {name} on the full {label} set: bound "
                   f"{bound_ms:.6f} ms ({bound_by})")
-    return rows, counts
+    return rows, counts, bench
+
+
+def anchor_check(bench, card):
+    """anchorbench's run on kbench's reflection set (leaf 8 and 64, three
+    orders, ANCHOR_FRAMES launches each): K1's t after un-permutation
+    within kbench's gate of the base order's."""
+    from raytracedggx_tpu_torch.scripts import anchorbench, kbench
+
+    res = anchorbench.run(bench, ANCHOR_FRAMES, 32)
+    worst = max(r["parity"] for v in res.values()
+                for r in v["orders"].values())
+    check(worst <= kbench.PARITY_BAR, f"anchorbench: K1's t in every order "
+          f"after un-permutation within {kbench.PARITY_BAR:g} of the base "
+          f"order's (max |dt| {worst:.3e}; {card})")
+    print(json.dumps({"anchorbench": res}))
+    return res
 
 
 def t_min_zero_check(bench, name):
@@ -826,6 +1178,18 @@ def main():
         k1_rows[leaf] = rows
     res = {"K1": dict(k1_rows[sw0.leaf_size][2], max_abs_err=max(
         r["max_abs_err"] for rows in k1_rows.values() for r in rows))}
+    # K1's slim and fat modes at the renderer's leaf size; the JSON line
+    # reports the full primary wave, the error of all
+    mode_rows = {"K1s": [], "K1f": [], "K1e": []}
+    for label, (wo, wd, wt_min, wt_max) in zip(
+            ("check rays", "primary wave", "reflection wave"),
+            [(o, d, 0.0, t_max)] + list(waves)):
+        for k, row in k1_modes_check(label, sw0, wo, wd, wt_max,
+                                     wt_min).items():
+            mode_rows[k].append(row)
+    for k, rows in mode_rows.items():
+        res[k] = dict(rows[1], max_abs_err=max(r["max_abs_err"]
+                                               for r in rows))
 
     # K4/K5: 8,192 primary and 8,192 reflection rays of the "wide" frame,
     # in the model instance's object space, at the reflection wave's
@@ -884,14 +1248,19 @@ def main():
 
     print("== phase 4: paths at 1280x720")
     runs = {"wide": drive_path(renderer, "wide", TIMED_FRAMES, METAL_FRAMES,
-                               [2, 2, 0, 0, 0], [3, 2, 2, 0, 0], card)}
+                               [2, 0, 0, 0, 2, 0, 0, 0],
+                               [3, 0, 0, 0, 2, 2, 0, 0], card)}
     runs["pallas4"] = drive_path(per_mesh["pallas4"], "pallas4",
                                  PER_MESH_TIMED, PER_MESH_METAL,
-                                 [0, 2, 0, 0, 4], [0, 2, 2, 0, 6], card)
+                                 [0, 0, 0, 0, 2, 0, 0, 4],
+                                 [0, 0, 0, 0, 2, 2, 0, 6], card)
     runs["pallas"] = drive_path(per_mesh["pallas"], "pallas",
                                 PER_MESH_TIMED, PER_MESH_METAL,
-                                [0, 2, 0, 4, 0], [0, 2, 2, 6, 0], card)
+                                [0, 0, 0, 0, 2, 0, 4, 0],
+                                [0, 0, 0, 0, 2, 2, 6, 0], card)
     kernels_switch_check(scene, dev, card)
+    knobs = knob_paths(scene, dev, card)
+    fat_launches = fat_path_check(renderer, worlds_f, waves)
 
     print("== phase 5: golden cube scene")
     golden_check(dev)
@@ -900,24 +1269,35 @@ def main():
         golden_check(dev, trav, ndc_fmt=True)
 
     print("== phase 6: kernel lab")
-    lab_rows, lab_counts = kernel_lab(dev, rng, card)
+    lab_rows, lab_counts, bench = kernel_lab(dev, rng, card)
     res.update(lab_rows)
+    anchor_check(bench, card)
 
     # launches: each kernel's count over its own path's run (K1-K3: "wide")
     meta = [
         ("K1 trace_tiles_instanced", "csrc/traverse.cu",
          "raytracedggx_tpu/ops/fused.py:216", runs["wide"]["launches"][0]),
+        ("K1s trace_tiles_instanced(slim=True)", "csrc/traverse.cu",
+         "raytracedggx_tpu/ops/fused.py:216",
+         knobs["trace_slim"]["launches"][1]),
+        ("K1f trace_tiles_instanced(lean=False)", "csrc/traverse.cu",
+         "raytracedggx_tpu/ops/fused.py:216", fat_launches),
+        # K1s's epilogue: the reference recomputed u, v in XLA after its
+        # slim kernel
+        ("K1e slim_uv", "csrc/traverse.cu",
+         "raytracedggx_tpu/ops/scene_wide.py:456",
+         knobs["trace_slim"]["launches"][3]),
         ("K2 reflection_pass", "csrc/spatial.cu",
          "raytracedggx_tpu/ops/spatial_pallas.py:35",
-         runs["wide"]["launches"][1]),
+         runs["wide"]["launches"][4]),
         ("K3 diffuse_pass", "csrc/spatial.cu",
          "raytracedggx_tpu/ops/spatial_pallas.py:77",
-         runs["wide"]["launches"][2]),
+         runs["wide"]["launches"][5]),
         ("K4 trace_tiles_flat", "csrc/traverse_flat.cu",
          "raytracedggx_tpu/ops/traverse_pallas.py:40",
-         runs["pallas"]["launches"][3]),
+         runs["pallas"]["launches"][6]),
         ("K5 trace_tiles4", "csrc/traverse_wide4.cu",
-         "raytracedggx_tpu/ops/wide.py:166", runs["pallas4"]["launches"][4]),
+         "raytracedggx_tpu/ops/wide.py:166", runs["pallas4"]["launches"][7]),
         ("K6a trace_tiles_lab", "csrc/traverse_lab.cu",
          "raytracedggx_tpu/ops/lab/fused_lab.py:73", lab_counts[0]),
         ("K6b trace_tiles_lab(leaf_stack=True)", "csrc/traverse_lab.cu",
@@ -932,7 +1312,11 @@ def main():
     print(f"build {build_secs:.3f} s; "
           + "; ".join(f"{k} {v['ms']:.4f} ms/frame, metallic 0.5 "
                       f"{v['ms_metal']:.4f} ms/frame"
-                      for k, v in runs.items()) + f"; {card}")
+                      for k, v in runs.items())
+          + "; knobs paired: " + "; ".join(
+              f"{k} {v['ms']:.4f} ms/frame, metallic 0.5 "
+              f"{v['ms_metal']:.4f}" for k, v in knobs.items())
+          + f"; {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -123,6 +123,23 @@ __device__ __forceinline__ bool tri_hit(float v0x, float v0y, float v0z,
   return false;
 }
 
+// The same test keeping t alone (K1's slim mode): u and v decide the hit
+// and are dropped, so a leaf loop carries no best u and v.
+__device__ __forceinline__ bool tri_hit_t(float v0x, float v0y, float v0z,
+                                          float e1x, float e1y, float e1z,
+                                          float e2x, float e2y, float e2z,
+                                          const Ray& r, float t_min,
+                                          float& best_t) {
+  float t, u, v;
+  if (tri_uvt(v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, r, t_min, t, u,
+              v) &&
+      t <= best_t) {
+    best_t = t;
+    return true;
+  }
+  return false;
+}
+
 // The triangles [a, end) of a leaf in stream order, each v0 _ e1 _ e2 _ as
 // three float4 of tris; triangle j + 1's loads go out before triangle j is
 // tested, so a leaf costs about one round trip.  A hit is taken on

@@ -1,9 +1,23 @@
 // K1: closest-hit traversal of the instanced 4-wide scene BVH.
 //
 // Replaces the TPU kernel raytracedggx_tpu/ops/fused.py:_instanced_kernel
-// (launched by trace_tiles_instanced), lean layout.
+// (launched by trace_tiles_instanced) in its three output modes, each an
+// instance of one template on the same walk:
+//   * lean (K1): t, u, v, slot, inst;
+//   * slim (K1s, the TPU's slim=True): t, slot, inst only; the leaf test
+//     keeps best t and its slot (rtggx::tri_hit_t), so no best u and v
+//     are carried, and the caller recomputes u, v from the slot with
+//     slim_uv_kernel below (K1e);
+//   * fat (K1f, the TPU's lean=False): t, u, v, the interpolated
+//     OBJECT-space normal (R, 3) and prim, inst.  The TPU kernel read
+//     19L-column fat leaves and interpolated at every accepted hit; here
+//     the walk is lean's, and after it the winner's slot row of attrs4
+//     gives n0, n1, n2 and prim: w0*n0 + u*n1 + v*n2, w0 = (1 - u) - v,
+//     rounded op by op (__fmul_rn / __fadd_rn) in the plain version's
+//     order, so it equals that interpolation of the same u, v bit for
+//     bit; a miss writes a zero normal and prim -1.
 //
-// Contract (identical outputs to the lean TPU kernel):
+// Contract (identical outputs to the TPU kernel in each mode):
 //   * nodes (N, 36) f32 rows, read as nine float4: 4 child boxes (lo.xyz,
 //     hi.xyz) at 6k, child kind at 24+k (0 empty / 1 leaf / 2 internal /
 //     3 instance entry), child address at 28+k (leaf ordinal or node
@@ -65,7 +79,11 @@
 #include "ray.cuh"
 
 #define K1_THREADS 128
+#define K1E_THREADS 256
 #define K1_MAX_STACK 64
+#define K1_LEAN 0
+#define K1_SLIM 1
+#define K1_FAT 2
 #define K1_TAG_SHIFT 20
 #define K1_NODE_MASK 0xFFFFF
 
@@ -88,17 +106,26 @@ __device__ __forceinline__ void exchange(float& ka, int& va, float& kb,
   }
 }
 
+// w0*n0 + u*n1 + v*n2, each product and sum rounded on its own
+__device__ __forceinline__ float interp(float w0, float n0, float u, float n1,
+                                        float v, float n2) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(w0, n0), __fmul_rn(u, n1)),
+                   __fmul_rn(v, n2));
+}
+
+template <int MODE>
 __global__ void __launch_bounds__(K1_THREADS)
 trace_instanced_kernel(const float4* __restrict__ nodes,
                        const float4* __restrict__ tris,
                        const float4* __restrict__ inv_mats,
+                       const float4* __restrict__ attrs4,
                        const float* __restrict__ ray_o,
                        const float* __restrict__ ray_d,
                        const float* __restrict__ t_max, float t_min,
                        int n_rays, int L, int stack_size,
                        float* __restrict__ out_t, float* __restrict__ out_u,
-                       float* __restrict__ out_v, int* __restrict__ out_slot,
-                       int* __restrict__ out_inst,
+                       float* __restrict__ out_v, float* __restrict__ out_n,
+                       int* __restrict__ out_id, int* __restrict__ out_inst,
                        unsigned long long* __restrict__ stats) {
   extern __shared__ int stack_smem[];  // [entry][thread]
   int* const stack = stack_smem + threadIdx.x;
@@ -169,8 +196,15 @@ trace_instanced_kernel(const float4* __restrict__ nodes,
               ne1 = __ldg(tr + 1);
               ne2 = __ldg(tr + 2);
             }
-            if (rtggx::tri_hit(v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x, e2.y,
-                               e2.z, ro, t_min, best_t, best_u, best_v)) {
+            bool took;
+            if constexpr (MODE == K1_SLIM)
+              took = rtggx::tri_hit_t(v0.x, v0.y, v0.z, e1.x, e1.y, e1.z,
+                                      e2.x, e2.y, e2.z, ro, t_min, best_t);
+            else
+              took = rtggx::tri_hit(v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x,
+                                    e2.y, e2.z, ro, t_min, best_t, best_u,
+                                    best_v);
+            if (took) {
               best_slot = a * L + j;
               best_inst = tag - 1;
             }
@@ -206,37 +240,137 @@ trace_instanced_kernel(const float4* __restrict__ nodes,
       }
     }
     out_t[r] = best_t;
-    out_u[r] = best_u;
-    out_v[r] = best_v;
-    out_slot[r] = best_slot;
+    if constexpr (MODE != K1_SLIM) {
+      out_u[r] = best_u;
+      out_v[r] = best_v;
+    }
+    if constexpr (MODE == K1_FAT) {
+      float nx = 0.0f, ny = 0.0f, nz = 0.0f;
+      int prim = -1;
+      if (best_slot >= 0) {
+        // the winner's row: n0.xyz n1.x | n1.yz n2.xy | n2.z prim _ _
+        const float4* __restrict__ ar = attrs4 + (size_t)best_slot * 3;
+        const float4 a0 = __ldg(ar), a1 = __ldg(ar + 1), a2 = __ldg(ar + 2);
+        const float w0 = __fsub_rn(__fsub_rn(1.0f, best_u), best_v);
+        nx = interp(w0, a0.x, best_u, a0.w, best_v, a1.z);
+        ny = interp(w0, a0.y, best_u, a1.x, best_v, a1.w);
+        nz = interp(w0, a0.z, best_u, a1.y, best_v, a2.x);
+        prim = (int)a2.y;
+      }
+      out_n[3 * r] = nx;
+      out_n[3 * r + 1] = ny;
+      out_n[3 * r + 2] = nz;
+      out_id[r] = prim;
+    } else {
+      out_id[r] = best_slot;
+    }
     out_inst[r] = best_inst;
   }
   rtggx::add_stats(stats, n_box, n_tri);  // every thread of the warp is here
 }
 
+template <int MODE>
+void launch(const void* nodes, const void* tris4, const void* inv_mats,
+            const void* attrs4, const void* ray_o, const void* ray_d,
+            const void* t_max, float t_min, int n_rays, int leaf_size,
+            int stack_size, void* out_t, void* out_u, void* out_v,
+            void* out_n, void* out_id, void* out_inst, void* stats,
+            void* stream) {
+  const int blocks = (n_rays + K1_THREADS - 1) / K1_THREADS;
+  const size_t smem = sizeof(int) * K1_THREADS * stack_size;
+  trace_instanced_kernel<MODE>
+      <<<blocks, K1_THREADS, smem, (cudaStream_t)stream>>>(
+          (const float4*)nodes, (const float4*)tris4,
+          (const float4*)inv_mats, (const float4*)attrs4,
+          (const float*)ray_o, (const float*)ray_d, (const float*)t_max,
+          t_min, n_rays, leaf_size, stack_size, (float*)out_t,
+          (float*)out_u, (float*)out_v, (float*)out_n, (int*)out_id,
+          (int*)out_inst, (unsigned long long*)stats);
+}
+
+// K1e, K1s's epilogue: u, v of each ray's winning slot (0 where slot < 0),
+// from the walk's own object-space ray (rtggx::make_ray of the winner's
+// inverse world, tag inst + 1) and its Moller-Trumbore (rtggx::tri_uvt),
+// so they equal lean K1's bit for bit.  The TPU recomputed them in XLA
+// after its slim kernel (raytracedggx_tpu/ops/scene_wide.py:456-470); a
+// float32 recompute in another order differs from the walk's by more than
+// 1e-4 on grazing hits (its error grows as |o - v0| / (|e1| cos)), so the
+// port runs the walk's arithmetic again.  One thread per ray, bound by its
+// dependent loads: slot and inst, then six float4.
+__global__ void __launch_bounds__(K1E_THREADS)
+slim_uv_kernel(const float4* __restrict__ tris,
+               const float4* __restrict__ inv_mats,
+               const float* __restrict__ ray_o,
+               const float* __restrict__ ray_d,
+               const int* __restrict__ slot, const int* __restrict__ inst,
+               int n_rays, float* __restrict__ out_u,
+               float* __restrict__ out_v) {
+  const int r = blockIdx.x * K1E_THREADS + threadIdx.x;
+  if (r >= n_rays) return;
+  float u = 0.0f, v = 0.0f;
+  const int s = slot[r];
+  if (s >= 0) {
+    const float4* __restrict__ m = inv_mats + 3 * (inst[r] + 1);
+    const float4* __restrict__ tr = tris + (size_t)s * 3;
+    const float4 m0 = __ldg(m), m1 = __ldg(m + 1), m2 = __ldg(m + 2);
+    const float4 v0 = __ldg(tr), e1 = __ldg(tr + 1), e2 = __ldg(tr + 2);
+    const rtggx::Ray ro = rtggx::make_ray(
+        m0, m1, m2, ray_o[3 * r], ray_o[3 * r + 1], ray_o[3 * r + 2],
+        ray_d[3 * r], ray_d[3 * r + 1], ray_d[3 * r + 2]);
+    float t;
+    rtggx::tri_uvt(v0.x, v0.y, v0.z, e1.x, e1.y, e1.z, e2.x, e2.y, e2.z, ro,
+                   0.0f, t, u, v);
+  }
+  out_u[r] = u;
+  out_v[r] = v;
+}
+
 }  // namespace
 
-// stack_size: entries per thread, the tree's bound (1..K1_MAX_STACK); the
-// launch takes stack_size * 128 * 4 bytes of shared memory per block.
+// K1e over n_rays rays: slot, inst as K1s wrote them.
+extern "C" int rtggx_slim_uv(const void* tris4, const void* inv_mats,
+                             const void* ray_o, const void* ray_d,
+                             const void* slot, const void* inst, int n_rays,
+                             void* out_u, void* out_v, void* stream) {
+  if (n_rays <= 0) return 0;
+  const int blocks = (n_rays + K1E_THREADS - 1) / K1E_THREADS;
+  slim_uv_kernel<<<blocks, K1E_THREADS, 0, (cudaStream_t)stream>>>(
+      (const float4*)tris4, (const float4*)inv_mats, (const float*)ray_o,
+      (const float*)ray_d, (const int*)slot, (const int*)inst, n_rays,
+      (float*)out_u, (float*)out_v);
+  return (int)cudaGetLastError();
+}
+
+// mode: 0 lean, 1 slim (out_u, out_v, out_n and attrs4 unused), 2 fat
+// (out_id takes prim).  stack_size: entries per thread, the tree's bound
+// (1..K1_MAX_STACK); the launch takes stack_size * 128 * 4 bytes of
+// shared memory per block.
 extern "C" int rtggx_trace_instanced(const void* nodes, const void* tris4,
-                                     const void* inv_mats, const void* ray_o,
-                                     const void* ray_d, const void* t_max,
-                                     float t_min, int n_rays, int leaf_size,
-                                     int stack_size, void* out_t, void* out_u,
-                                     void* out_v, void* out_slot,
-                                     void* out_inst, void* stats,
-                                     void* stream) {
+                                     const void* inv_mats, const void* attrs4,
+                                     const void* ray_o, const void* ray_d,
+                                     const void* t_max, float t_min,
+                                     int n_rays, int leaf_size,
+                                     int stack_size, int mode, void* out_t,
+                                     void* out_u, void* out_v, void* out_n,
+                                     void* out_id, void* out_inst,
+                                     void* stats, void* stream) {
   if (n_rays <= 0) return 0;
   if (stack_size < 1 || stack_size > K1_MAX_STACK)
     return (int)cudaErrorInvalidValue;
-  const int blocks = (n_rays + K1_THREADS - 1) / K1_THREADS;
-  const size_t smem = sizeof(int) * K1_THREADS * stack_size;
-  trace_instanced_kernel<<<blocks, K1_THREADS, smem, (cudaStream_t)stream>>>(
-      (const float4*)nodes, (const float4*)tris4, (const float4*)inv_mats,
-      (const float*)ray_o, (const float*)ray_d, (const float*)t_max, t_min,
-      n_rays, leaf_size, stack_size, (float*)out_t, (float*)out_u,
-      (float*)out_v, (int*)out_slot, (int*)out_inst,
-      (unsigned long long*)stats);
+  if (mode == K1_LEAN && out_u && out_v)
+    launch<K1_LEAN>(nodes, tris4, inv_mats, nullptr, ray_o, ray_d, t_max,
+                    t_min, n_rays, leaf_size, stack_size, out_t, out_u, out_v,
+                    nullptr, out_id, out_inst, stats, stream);
+  else if (mode == K1_SLIM)
+    launch<K1_SLIM>(nodes, tris4, inv_mats, nullptr, ray_o, ray_d, t_max,
+                    t_min, n_rays, leaf_size, stack_size, out_t, nullptr,
+                    nullptr, nullptr, out_id, out_inst, stats, stream);
+  else if (mode == K1_FAT && attrs4 && out_u && out_v && out_n)
+    launch<K1_FAT>(nodes, tris4, inv_mats, attrs4, ray_o, ray_d, t_max,
+                   t_min, n_rays, leaf_size, stack_size, out_t, out_u, out_v,
+                   out_n, out_id, out_inst, stats, stream);
+  else
+    return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 

@@ -29,7 +29,13 @@ run kernels K2 and K3 (for CPU tensors their plain versions; "cuda"
 requires a CUDA device), "xla" the plain torch passes on any device
 (the reference's name for its direct stencils); ``set_kernels`` switches
 it between frames.  ``emulate_formats`` round-trips the G-buffers and
-the denoiser's targets through the reference's storage formats.  Not
+the denoiser's targets through the reference's storage formats.  The
+reference's off-by-default knobs keep its names and defaults:
+``trace_slim`` (K1's slim mode, K1s, in every wave) and ``sort_anchor``
+(an anchor cut of that many boxes per mesh, whose per-ray id joins the
+bounce sort key) act on "wide" only and raise ValueError on any other
+traversal; ``sort_dir_bits`` (3 or 6) and the ``dbg_*`` ablations go to
+``ray_trace_pass``.  Not
 ported yet: the reference's ``async_compute``, the ``cam`` override of
 ``step``, the sharded ``valid`` mask, and ``step_n`` as one captured
 program (here a Python loop).  The reference's
@@ -50,7 +56,8 @@ from ..bvh import build_tlas
 from ..denoise import (diffuse_spatial_filter, reflection_spatial_filter,
                        temporal_ss)
 from ..ops.ordering import make_block_order
-from ..ops.scene_wide import (build_scene_wide, refit_scene_wide,
+from ..ops.scene_wide import (anchor_bits, anchor_ids_scene,
+                              build_scene_wide, refit_scene_wide,
                               trace_scene_wide_fused)
 from ..ops.traverse_cuda import trace_scene_flat
 from ..ops.wide import trace_scene4
@@ -90,6 +97,17 @@ class RenderConfig:
     wide_leaf_size: int = 8
     sort_secondary: bool = True     # dead|octant|Morton order for bounce
                                     # waves (kernel traversals only)
+    sort_dir_bits: int = 3          # direction-class bits of that key (3 =
+                                    # octant; 6 = ~30 degree cones)
+    sort_anchor: int = 0            # "wide": a ~K-box cut per mesh whose
+                                    # nearest-entry id joins the key after
+                                    # the direction class (0: off)
+    trace_slim: bool = False        # "wide": K1's slim mode (t, slot, inst;
+                                    # u, v recomputed after the kernel)
+    dbg_no_refl_trace: bool = False       # ablations of the reflection
+    dbg_no_secondary_shade: bool = False  # wave (trace/raygen.py)
+    dbg_env_mode: str = "full"            # "no_env" | "bilinear"
+    dbg_miss_lod: float = 0.0             # env LOD of its misses
 
 
 class RenderState(NamedTuple):
@@ -112,6 +130,11 @@ class Renderer:
         self.traversal = "wide" if cfg.traversal == "auto" else cfg.traversal
         if self.traversal not in ("wide", "pallas4", "pallas", "jax"):
             raise ValueError(f"traversal={cfg.traversal!r}")
+        if self.traversal != "wide" and (cfg.trace_slim or cfg.sort_anchor):
+            raise ValueError("trace_slim and sort_anchor need "
+                             "traversal='wide'")
+        if cfg.sort_dir_bits not in (3, 6):
+            raise ValueError(f"sort_dir_bits={cfg.sort_dir_bits!r}")
         self.kernels = None
         self.set_kernels(cfg.kernels)
         self.scene = scene
@@ -120,11 +143,14 @@ class Renderer:
         self.env = env if env is not None else procedural_env(64, dev)
         self.geom = upload_scene(scene, dev, traversal=self.traversal,
                                  leaf_size=cfg.leaf_size)
-        self.swide = None
+        self.swide, self._anchor_bits = None, 0
         if self.traversal == "wide":
             self.swide = build_scene_wide(self.geom, scene.mesh_ids,
                                           leaf_size=cfg.wide_leaf_size,
-                                          device=dev)
+                                          device=dev,
+                                          anchor_cut=cfg.sort_anchor)
+            if cfg.sort_anchor:
+                self._anchor_bits = anchor_bits(self.swide)
         # screen-block order for the kernel traversals (warp coherence)
         self.ray_order = None
         if self.traversal != "jax":
@@ -237,6 +263,12 @@ class Renderer:
                              bary_mode=cfg.bary_mode, geom=self.geom,
                              sort_secondary=(cfg.sort_secondary
                                              and self.traversal != "jax"),
+                             sort_dir_bits=cfg.sort_dir_bits,
+                             dbg_no_refl_trace=cfg.dbg_no_refl_trace,
+                             dbg_no_secondary_shade=(
+                                 cfg.dbg_no_secondary_shade),
+                             dbg_env_mode=cfg.dbg_env_mode,
+                             dbg_miss_lod=cfg.dbg_miss_lod,
                              **self._tracer(consts))
         accum, frame = self._post_process(out, state.history)
         new_state = RenderState(history=accum,
@@ -245,17 +277,23 @@ class Renderer:
         return new_state, frame, dict(out, accum=accum)
 
     def _tracer(self, consts):
-        """The frame's traversal: trace_fused (K1 over the refitted scene
-        BVH) or trace_fn (per-mesh, in each instance's object space)."""
+        """The frame's traversal: trace_fused (K1, or K1s with trace_slim,
+        over the refitted scene BVH, with the anchor ids of sort_anchor) or
+        trace_fn (per-mesh, in each instance's object space)."""
         if self.traversal == "wide":
             sw = refit_scene_wide(self.swide, consts.worlds)
-            hook = self.trace_hook
+            hook, slim = self.trace_hook, self.config.trace_slim
 
             def trace(o, d, t_min, t_max):
                 if hook is not None:
                     hook(sw, o, d, t_min, t_max)
-                return trace_scene_wide_fused(sw, o, d, t_min, t_max)
-            return dict(trace_fused=trace)
+                return trace_scene_wide_fused(sw, o, d, t_min, t_max,
+                                              slim=slim)
+            out = dict(trace_fused=trace)
+            if self._anchor_bits:
+                out.update(anchor_fn=lambda o, d: anchor_ids_scene(sw, o, d),
+                           anchor_bits=self._anchor_bits)
+            return out
         if self.traversal == "jax":
             return dict(trace_fn=default_tracer(self.geom))
         geom = self.geom

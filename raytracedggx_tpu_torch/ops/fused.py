@@ -1,11 +1,11 @@
 """Instanced closest-hit traversal: kernel K1 and its plain twin.
 
-Torch/CUDA port of raytracedggx_tpu/ops/fused.py (lean layout).  The host
-function ``build_records4_padded`` is copied unchanged (numpy).  The TPU
-kernel ``_instanced_kernel`` becomes the CUDA kernel in
-``csrc/traverse.cu``, launched by ``trace_tiles_instanced``: one ray per
-thread with its own stack, in place of 1024-ray packets sharing one SMEM
-stack.  ``trace_instanced_plain`` is the plain torch version of the same
+Torch/CUDA port of raytracedggx_tpu/ops/fused.py.  The host function
+``build_records4_padded`` is copied unchanged (numpy).  The TPU kernel
+``_instanced_kernel`` becomes the CUDA kernel in ``csrc/traverse.cu``,
+launched by ``trace_tiles_instanced``: one ray per thread with its own
+stack, in place of 1024-ray packets sharing one SMEM stack.
+``trace_instanced_plain`` is the plain torch version of the same
 contract — brute-force Moller-Trumbore over every (instance, stream slot)
 pair — used for tensors on the CPU and as the kernel's oracle.
 
@@ -14,8 +14,16 @@ stream slots (leaf j = slots [j*L, (j+1)*L), padding v0 = NaN),
 inv_mats (1 + I, 12) inverse worlds with row 0 the identity.  The kernel
 reads node rows as nine float4 and the slots from their (S, 12) copy
 ``SceneWideBVH.tris4`` (v0, e1, e2 each padded to a float4).
-Outputs (t, u, v, slot, inst): t is t_max and u, v are 0 on a miss;
-slot = leaf*L + k and inst are int32, -1 on a miss.
+
+Three output modes, the TPU kernel's, one template instance each:
+- lean (K1): (t, u, v, slot, inst); t is t_max and u, v are 0 on a miss;
+  slot = leaf*L + k and inst are int32, -1 on a miss;
+- slim (K1s, ``slim=True``): (t, slot, inst); ``slim_uv`` (kernel K1e)
+  recomputes the winner's u, v from its slot and inst with the walk's own
+  arithmetic (ops/scene_wide.trace_scene_wide_fused);
+- fat (K1f, ``lean=False``): (t, u, v, normal (R, 3), prim, inst), the
+  unnormalised OBJECT-space normal interpolated from the winner's
+  ``attrs4`` row (``slot_normals``' arithmetic), zero and -1 on a miss.
 """
 
 from __future__ import annotations
@@ -160,12 +168,45 @@ def _per_ray(t_max, like):
                                                       ).contiguous()
 
 
+def slot_normals(attrs, slot, u, v):
+    """(normal (R, 3), prim int32) of each ray's winning stream slot from
+    the (S, >= 10) attrs rows n0 n1 n2 | prim: the unnormalised
+    w0*n0 + u*n1 + v*n2 with w0 = (1 - u) - v, zero and -1 where slot < 0.
+    K1's fat mode rounds the same operations in the same order."""
+    hit = slot >= 0
+    att = attrs[torch.clamp(slot.to(torch.int64), 0, attrs.shape[0] - 1)]
+    w0 = (1.0 - u - v)[..., None]
+    nrm = w0 * att[:, 0:3] + u[..., None] * att[:, 3:6] \
+        + v[..., None] * att[:, 6:9]
+    return (torch.where(hit[..., None], nrm, 0.0),
+            torch.where(hit, att[:, 9].to(torch.int32), -1))
+
+
+def attrs4_rows(attrs):
+    """K1f's (S, 12) copy of the (S, 10) attrs rows, attrs | 0 0, so a row
+    is three 16-byte loads."""
+    return torch.nn.functional.pad(attrs[:, :10], (0, 2)).contiguous()
+
+
+MODES = {"lean": 0, "slim": 1, "fat": 2}   # csrc/traverse.cu's K1_* modes
+
+
+def _mode(slim, lean, attrs):
+    if slim and not lean:
+        raise ValueError("slim requires the lean layout")
+    if not lean and attrs is None:
+        raise ValueError("the fat mode (lean=False) needs the attrs rows")
+    return "slim" if slim else "lean" if lean else "fat"
+
+
 def trace_instanced_plain(tris, inv_mats, inst_slots, ray_o, ray_d, t_min,
-                          t_max):
+                          t_max, slim=False, lean=True, attrs=None):
     """Plain torch K1: brute-force Moller-Trumbore over every (instance,
-    stream slot) pair, chunked over rays.  Same outputs as the kernel;
-    ties go to the lowest (inst, slot).  inst_slots[i]: int64 stream
-    slots of instance i's mesh."""
+    stream slot) pair, chunked over rays.  Same outputs as the kernel in
+    each mode (slim: (t, slot, inst); lean=False: (t, u, v, normal, prim,
+    inst) from the (S, >= 10) ``attrs``); ties go to the lowest (inst,
+    slot).  inst_slots[i]: int64 stream slots of instance i's mesh."""
+    mode = _mode(slim, lean, attrs)
     dev = ray_o.device
     R = ray_o.shape[0]
     t_max = _per_ray(t_max, ray_o)
@@ -212,32 +253,48 @@ def trace_instanced_plain(tris, inv_mats, inst_slots, ray_o, ray_d, t_min,
             best_slot[sl] = torch.where(upd, slots[kc[:, 0]].to(torch.int32),
                                         best_slot[sl])
             best_inst[sl] = torch.where(upd, i, best_inst[sl])
+    if mode == "slim":
+        return best_t, best_slot, best_inst
+    if mode == "fat":
+        return (best_t, best_u, best_v,
+                *slot_normals(attrs, best_slot, best_u, best_v), best_inst)
     return best_t, best_u, best_v, best_slot, best_inst
 
 
 def trace_tiles_instanced(nodes, tris4, inv_mats, inst_slots, ray_o, ray_d,
                           t_min, t_max, leaf_size: int, stack: int,
-                          stats=None):
+                          stats=None, slim: bool = False, lean: bool = True,
+                          attrs4=None):
     """K1 wrapper: closest hit of (R, 3) WORLD-space rays over the
     instanced scene BVH.  tris4: the (S, 12) slot rows; stack: the tree's
     K1 bound (``SceneWideBVH.k1_stack``), at most the kernel's compiled
     shared-memory stack (``rtggx_k1_max_stack``, 64), else this raises.
-    CUDA tensors launch the kernel (or raise); CPU tensors take
-    ``trace_instanced_plain`` on the (S, 9) slots.  stats: optional (2,)
-    int64 tensor the kernel adds its box and triangle tests to."""
+    slim=True launches K1s, lean=False K1f, which reads the (S, 12)
+    ``attrs4`` rows (``attrs4_rows``; a fat tree's ``SceneWideBVH.attrs4``);
+    slim requires lean.  Returns
+    the mode's outputs (module docstring).  CUDA tensors launch the kernel
+    (or raise); CPU tensors take ``trace_instanced_plain`` on the (S, 9)
+    slots.  stats: optional (2,) int64 tensor the kernel adds its box and
+    triangle tests to.  Launches count per mode: ``launches`` (lean),
+    ``launches_slim``, ``launches_fat``."""
+    mode = _mode(slim, lean, attrs4)
     t_max = _per_ray(t_max, ray_o)
     if ray_o.device.type == "cpu":
-        return trace_instanced_plain(float3_rows(tris4), inv_mats,
-                                     inst_slots, ray_o, ray_d, t_min, t_max)
-    dev, f32 = ray_o.device, torch.float32
+        return trace_instanced_plain(
+            float3_rows(tris4), inv_mats, inst_slots, ray_o, ray_d, t_min,
+            t_max, slim, lean, None if attrs4 is None else attrs4[:, :10])
+    dev, f32, i32 = ray_o.device, torch.float32, torch.int32
     R = ray_o.shape[0]
     require("nodes", nodes, (None, 36), f32, dev)
     require("tris4", tris4, (None, 12), f32, dev)
     require("inv_mats", inv_mats, (None, 12), f32, dev)
     require("ray_o", ray_o, (R, 3), f32, dev)
     require("ray_d", ray_d, (R, 3), f32, dev)
-    for name, t in (("nodes", nodes), ("tris4", tris4),
-                    ("inv_mats", inv_mats)):
+    rows = [("nodes", nodes), ("tris4", tris4), ("inv_mats", inv_mats)]
+    if mode == "fat":
+        require("attrs4", attrs4, (tris4.shape[0], 12), f32, dev)
+        rows.append(("attrs4", attrs4))
+    for name, t in rows:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: K1 reads float4 rows, need a "
                              f"16-byte aligned tensor")
@@ -245,20 +302,93 @@ def trace_tiles_instanced(nodes, tris4, inv_mats, inst_slots, ray_o, ray_d,
     if not 1 <= stack <= lib.rtggx_k1_max_stack():
         raise ValueError(f"the tree needs a stack of {stack}; K1 compiles "
                          f"{lib.rtggx_k1_max_stack()}")
-    out_t = torch.empty(R, dtype=f32, device=dev)
-    out_u = torch.empty(R, dtype=f32, device=dev)
-    out_v = torch.empty(R, dtype=f32, device=dev)
-    out_slot = torch.empty(R, dtype=torch.int32, device=dev)
-    out_inst = torch.empty(R, dtype=torch.int32, device=dev)
+
+    def out(*shape, dtype=f32):
+        return torch.empty((R, *shape), dtype=dtype, device=dev)
+
+    out_t, out_id, out_inst = out(), out(dtype=i32), out(dtype=i32)
+    out_u = out_v = out_n = None
+    if mode != "slim":
+        out_u, out_v = out(), out()
+    if mode == "fat":
+        out_n = out(3)
     err = lib.rtggx_trace_instanced(
         nodes.data_ptr(), tris4.data_ptr(), inv_mats.data_ptr(),
-        ray_o.data_ptr(), ray_d.data_ptr(), t_max.data_ptr(), float(t_min),
-        R, int(leaf_size), int(stack), out_t.data_ptr(), out_u.data_ptr(),
-        out_v.data_ptr(), out_slot.data_ptr(), out_inst.data_ptr(),
-        pointer(stats), stream_handle(dev))
-    check_launch(err, "K1 trace_tiles_instanced")
+        pointer(attrs4 if mode == "fat" else None), ray_o.data_ptr(),
+        ray_d.data_ptr(), t_max.data_ptr(), float(t_min), R, int(leaf_size),
+        int(stack), MODES[mode], out_t.data_ptr(), pointer(out_u),
+        pointer(out_v), pointer(out_n), out_id.data_ptr(),
+        out_inst.data_ptr(), pointer(stats), stream_handle(dev))
+    check_launch(err, f"K1 trace_tiles_instanced ({mode})")
+    if mode == "slim":
+        trace_tiles_instanced.launches_slim += 1
+        return out_t, out_id, out_inst
+    if mode == "fat":
+        trace_tiles_instanced.launches_fat += 1
+        return out_t, out_u, out_v, out_n, out_id, out_inst
     trace_tiles_instanced.launches += 1
-    return out_t, out_u, out_v, out_slot, out_inst
+    return out_t, out_u, out_v, out_id, out_inst
 
 
 trace_tiles_instanced.launches = 0
+trace_tiles_instanced.launches_slim = 0
+trace_tiles_instanced.launches_fat = 0
+
+
+def slim_uv_plain(tris, inv_mats, ray_o, ray_d, slot, inst):
+    """Plain torch K1e: (u, v) of each ray's winning stream slot from its
+    (S, 9) row and its instance's inverse world (row inst + 1, taken by
+    index), one Moller-Trumbore in that object space; 0 where slot < 0.
+    The reference's recompute after its slim kernel
+    (raytracedggx_tpu/ops/scene_wide.py:456-470)."""
+    hit = slot >= 0
+    geo = tris[torch.clamp(slot.to(torch.int64), 0, tris.shape[0] - 1)]
+    m = inv_mats[torch.clamp(inst.to(torch.int64) + 1, 0,
+                             inv_mats.shape[0] - 1)]
+    o = (ray_o[:, 0:1] * m[:, 0:3] + ray_o[:, 1:2] * m[:, 3:6]
+         + ray_o[:, 2:3] * m[:, 6:9] + m[:, 9:12])
+    d = (ray_d[:, 0:1] * m[:, 0:3] + ray_d[:, 1:2] * m[:, 3:6]
+         + ray_d[:, 2:3] * m[:, 6:9])
+    v0, e1, e2 = geo[:, 0:3], geo[:, 3:6], geo[:, 6:9]
+    pv = torch.linalg.cross(d, e2)
+    inv_det = 1.0 / (e1 * pv).sum(-1)
+    tv = o - v0
+    u = (tv * pv).sum(-1) * inv_det
+    v = (d * torch.linalg.cross(tv, e1)).sum(-1) * inv_det
+    return torch.where(hit, u, 0.0), torch.where(hit, v, 0.0)
+
+
+def slim_uv(tris4, inv_mats, ray_o, ray_d, slot, inst):
+    """K1e wrapper, K1s's epilogue: (u, v) of each ray's winning slot
+    (K1s's slot and inst), 0 on a miss.  The kernel runs the walk's own
+    object-space ray and Moller-Trumbore, so u, v equal lean K1's bit for
+    bit; a float32 recompute in another order differs on grazing hits.
+    CUDA tensors launch it (or raise); CPU tensors take
+    ``slim_uv_plain`` on the (S, 9) slots."""
+    if ray_o.device.type == "cpu":
+        return slim_uv_plain(float3_rows(tris4), inv_mats, ray_o, ray_d,
+                             slot, inst)
+    dev, f32, i32 = ray_o.device, torch.float32, torch.int32
+    R = ray_o.shape[0]
+    require("tris4", tris4, (None, 12), f32, dev)
+    require("inv_mats", inv_mats, (None, 12), f32, dev)
+    require("ray_o", ray_o, (R, 3), f32, dev)
+    require("ray_d", ray_d, (R, 3), f32, dev)
+    require("slot", slot, (R,), i32, dev)
+    require("inst", inst, (R,), i32, dev)
+    for name, t in (("tris4", tris4), ("inv_mats", inv_mats)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: K1e reads float4 rows, need a "
+                             f"16-byte aligned tensor")
+    out_u = torch.empty(R, dtype=f32, device=dev)
+    out_v = torch.empty(R, dtype=f32, device=dev)
+    err = load_library().rtggx_slim_uv(
+        tris4.data_ptr(), inv_mats.data_ptr(), ray_o.data_ptr(),
+        ray_d.data_ptr(), slot.data_ptr(), inst.data_ptr(), R,
+        out_u.data_ptr(), out_v.data_ptr(), stream_handle(dev))
+    check_launch(err, "K1e slim_uv")
+    slim_uv.launches += 1
+    return out_u, out_v
+
+
+slim_uv.launches = 0

@@ -4,10 +4,11 @@ Torch port of raytracedggx_tpu/ops/traverse_pallas.py:266-396
 (``block_order``, ``BlockOrder``, ``make_block_order`` and
 ``sort_rays_morton``).  With one ray per thread (kernel K1) an ordering
 changes no output, only which rays share a warp: screen blocks for the
-primary wave, dead | direction octant | origin Morton for bounces.  The
-sort is ``torch.sort(stable=True)`` on an int64 key, and the inverse
-permutation is a scatter (``inv[order] = arange``) instead of the
-reference's argsort of the permutation (a TPU sort-vs-scatter trade).
+primary wave, dead | direction class | [anchor] | origin Morton for
+bounces.  The sort is ``torch.sort(stable=True)`` on an int64 key, and
+the inverse permutation is a scatter (``inv[order] = arange``) instead of
+the reference's argsort of the permutation (a TPU sort-vs-scatter
+trade).
 """
 
 from __future__ import annotations
@@ -67,16 +68,34 @@ def make_block_order(width: int, height: int, device=None):
             torch.as_tensor(inv, device=device))
 
 
-def sort_rays_morton(ray_o, ray_d, scene_lo, scene_hi, active=None):
-    """(order, inverse) for an incoherent bounce wave: dead rays last,
-    then the direction octant, then the Morton code of the origin (the
-    reference's single 32-bit key with its default dir_bits=3, held in
-    int64)."""
-    octant = ((ray_d[:, 0] >= 0).to(torch.int64)
+def sort_rays_morton(ray_o, ray_d, scene_lo, scene_hi, active=None,
+                     dir_bits: int = 3, anchor=None, anchor_bits: int = 0):
+    """(order, inverse) for an incoherent bounce wave, from the
+    reference's single 32-bit key (traverse_pallas.py:326-380), held in
+    int64 bit for bit, so the order is the reference's: the dead bit 31,
+    then the direction class (``dir_bits`` 3: the octant; 6: the octant
+    and the axis-magnitude order, ~30 degree cones), then, with an
+    ``anchor`` (per-ray subtree id, ops/scene_wide.anchor_ids_scene) of
+    ``anchor_bits``, the anchor, then the Morton code's leading bits."""
+    if dir_bits not in (3, 6):
+        raise ValueError(f"dir_bits must be 3 or 6, got {dir_bits}")
+    dclass = ((ray_d[:, 0] >= 0).to(torch.int64)
               | ((ray_d[:, 1] >= 0).to(torch.int64) << 1)
               | ((ray_d[:, 2] >= 0).to(torch.int64) << 2))
+    if dir_bits == 6:
+        ax, ay, az = ray_d[:, 0].abs(), ray_d[:, 1].abs(), ray_d[:, 2].abs()
+        dclass = (dclass | ((ax > az).to(torch.int64) << 3)
+                  | ((ay > az).to(torch.int64) << 4)
+                  | ((ax > ay).to(torch.int64) << 5))
     code = morton3d(ray_o, scene_lo, scene_hi)
-    key = (octant << 28) | (code >> 2)
+    key = dclass << (31 - dir_bits)
+    if anchor is not None and anchor_bits:
+        ab = anchor_bits
+        key = (key | (anchor.to(torch.int64) << (31 - dir_bits - ab))
+               | (code >> (dir_bits - 1 + ab)))
+    else:
+        key = key | (code >> (dir_bits - 1))
+    key = key & 0xFFFFFFFF                   # the reference's uint32 wrap
     if active is not None:
         key = torch.where(active, key, key | (1 << 31))
     order = torch.sort(key, stable=True).indices

@@ -1,18 +1,26 @@
 """Unified instanced scene BVH: build, per-frame refit and the fused
 closest-hit wrapper.
 
-Torch port of raytracedggx_tpu/ops/scene_wide.py, lean layout only (the
-``slim``, fat and ``anchor_*`` paths wait).  A small top tree over
+Torch port of raytracedggx_tpu/ops/scene_wide.py.  A small top tree over
 INSTANCE world boxes enters shared per-MESH object-space subtrees through
 tagged instance nodes (kind 3); the traversal kernel (K1, ops/fused.py)
 transforms each ray by the tag's inverse world on a tag change.
+``trace_scene_wide_fused`` runs K1 in the reference's three modes: lean
+(the default), slim (``slim=True``: the kernel keeps only t, slot and
+inst, and kernel K1e recomputes u, v from the slot) and fat (a tree built
+with ``lean=False``: the kernel interpolates the normal and takes prim).
+The anchor cut (``anchor_cut``) and ``anchor_ids_scene`` give the bounce
+sort its per-ray subtree id (ops/ordering.sort_rays_morton).
 
 Re-laid out for the GPU: the reference's lane-tiled (Nt, 36, 128) node
 columns become (N, 36) rows, and its (Lt, 9L, 128) leaf columns become
 (S, 9) stream-slot rows (slot = leaf * L + k).  K1 reads a copy of the
 slots with 48-byte rows, (S, 12): v0, e1, e2 each padded to a float4, so
-a triangle is three 16-byte loads.  ``from_reference_arrays`` converts the
-reference's arrays, so both sides can trace one BVH.
+a triangle is three 16-byte loads; the fat mode reads the attrs rows the
+same way, (S, 12) ``attrs4``, which only a fat tree carries.  The
+reference's fat 19L leaf columns are not kept: every tree has the (S, 10)
+attrs table, and ``lean`` picks the mode.  ``from_reference_arrays`` converts the reference's arrays, lean
+or fat, so both sides can trace one BVH.
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ from ..bvh.lbvh import build_lbvh
 from ..bvh.sah import build_sah
 from ..trace.traverse import HitRecord
 from .flatten import float4_rows
-from .fused import build_records4_padded, trace_tiles_instanced
+from .fused import (attrs4_rows, build_records4_padded, slim_uv,
+                    slot_normals, trace_tiles_instanced)
 
 TAG_SHIFT = 20                      # stack entry = node | (tag << 20)
 MAX_NODES = 1 << TAG_SHIFT
@@ -39,6 +48,8 @@ class SceneWideBVH(NamedTuple):
     tris4: torch.Tensor         # (S, 12) f32 K1's copy: v0 _ e1 _ e2 _
     inv_mats: torch.Tensor      # (1 + I, 12) f32 inverse worlds (refit)
     attrs: torch.Tensor         # (S, 10) f32: n0 n1 n2 | prim per slot
+    attrs4: torch.Tensor        # (S, 12) f32 K1f's copy, attrs | 0 0; None
+    #                             on a lean tree
     static_cols: torch.Tensor   # (N, 12) f32 kind | a | b
     mesh_boxes: torch.Tensor    # (N - n_top, 24) f32 object-space boxes
     root_corners: torch.Tensor  # (I, 8, 3) mesh-root object box corners
@@ -50,6 +61,12 @@ class SceneWideBVH(NamedTuple):
     stack: int                  # the reference's bound (two-pop DFS)
     k1_stack: int               # K1's bound: near-first DFS, 3 * depth + 1
     depth: int                  # nodes on the longest root-to-leaf path
+    lean: bool = True           # False: trace_scene_wide_fused runs K1f
+    # the anchor cut: a ~K-box object-space cut of each mesh's subtree,
+    # per instance, padded to the largest cut (pads lo = 3e38, hi = -3e38)
+    anchor_boxes: torch.Tensor = None   # (I, K, 6) f32, or None
+    anchor_base: tuple = ()     # per instance its first anchor id; [-1]
+    #                             the total
 
 
 def _instance_tree(num_inst: int):
@@ -121,7 +138,7 @@ def tree_depth(kind, a_col) -> int:
 
 
 def _assemble(tris, attrs, kind, a_col, b_col, boxes, n_top, top_children,
-              num_inst, L, stack, worlds, device) -> SceneWideBVH:
+              num_inst, L, stack, worlds, device, lean) -> SceneWideBVH:
     corners, slots = _derived(kind, a_col, b_col, boxes, n_top, num_inst, L)
     depth = tree_depth(kind, a_col)
     static_cols = np.concatenate([kind, a_col, b_col], axis=1)
@@ -130,16 +147,18 @@ def _assemble(tris, attrs, kind, a_col, b_col, boxes, n_top, top_children,
         return torch.as_tensor(np.ascontiguousarray(x), dtype=dtype,
                                device=device)
 
+    attrs = dev(attrs)
     sw = SceneWideBVH(
         nodes=None, tris=dev(tris),
         tris4=dev(float4_rows(torch.as_tensor(tris))),
-        inv_mats=None, attrs=dev(attrs),
+        inv_mats=None, attrs=attrs,
+        attrs4=None if lean else attrs4_rows(attrs),
         static_cols=dev(static_cols), mesh_boxes=dev(boxes[n_top:]),
         root_corners=dev(corners),
         inst_slots=tuple(dev(s, torch.int64) for s in slots),
         top_children=tuple(top_children), n_top=int(n_top),
         num_nodes=int(kind.shape[0]), leaf_size=int(L), stack=int(stack),
-        k1_stack=3 * depth + 1, depth=depth)
+        k1_stack=3 * depth + 1, depth=depth, lean=bool(lean))
     if worlds is None:
         worlds = torch.eye(4, device=device).expand(num_inst, 4, 4)
     return refit_scene_wide(sw, worlds)
@@ -158,12 +177,65 @@ def _mesh_tree(host_mesh, L, builder):
     raise ValueError(f"builder must be 'sah' or 'lbvh', got {builder!r}")
 
 
+def _mesh_cut(recs, k_cut: int):
+    """BFS a mesh subtree's records from its root into a ~k_cut-node
+    frontier of object-space AABBs (the anchor cut).  recs[r] = 4 child
+    dicts with kind (0 pad / 1 leaf / 2 internal), a, lo, hi.  The
+    reference's ``_mesh_cut``, over build_records4_padded's records."""
+    frontier = [0]
+    boxes = []
+    while frontier and len(frontier) + len(boxes) < k_cut:
+        n = frontier.pop(0)
+        kids = []
+        for c in recs[n]:
+            if c["kind"] == 2:
+                kids.append(c["a"])
+            elif c["kind"] == 1:
+                boxes.append(np.concatenate([c["lo"], c["hi"]]))
+        frontier.extend(kids)
+    for n in frontier:
+        live = [c for c in recs[n] if c["kind"] > 0]
+        lo = np.min([c["lo"] for c in live], axis=0)
+        hi = np.max([c["hi"] for c in live], axis=0)
+        boxes.append(np.concatenate([lo, hi]))
+    return np.asarray(boxes, np.float32)
+
+
+def _anchor_cut(mesh_recs, mesh_ids, anchor_cut: int):
+    """(anchor_boxes (I, K, 6), anchor_base): one object-space cut per
+    unique mesh, instanced per instance with cumulative id bases; each
+    cut has at most k_eff = max(4, min(anchor_cut, 256 // I)) boxes, as
+    in the reference (scene_wide.py:286-306), and instances with a
+    smaller cut are padded with empty boxes up to the largest."""
+    num_inst = len(mesh_ids)
+    k_eff = max(4, min(anchor_cut, 256 // num_inst))
+    cuts = {m: _mesh_cut(mesh_recs[m][0], k_eff) for m in set(mesh_ids)}
+    k_max = max(c.shape[0] for c in cuts.values())
+    per_inst = np.empty((num_inst, k_max, 6), np.float32)
+    per_inst[:, :, 0:3] = BIG
+    per_inst[:, :, 3:6] = -BIG
+    base, bases = 0, []
+    for i, m in enumerate(mesh_ids):
+        c = cuts[m]
+        per_inst[i, :c.shape[0]] = c
+        bases.append(base)
+        base += c.shape[0]
+    bases.append(base)                     # [-1] = total anchors
+    return per_inst, tuple(bases)
+
+
 def build_scene_wide(geom, mesh_ids, leaf_size: int = 16, worlds=None,
-                     device=None, builder: str = "sah") -> SceneWideBVH:
+                     device=None, builder: str = "sah", lean: bool = True,
+                     anchor_cut: int = 32) -> SceneWideBVH:
     """geom: trace.geometry.SceneGeometry; mesh_ids: instance -> mesh.
     Host build of all topology and object-space geometry (binned-SAH or
     LBVH subtrees, 4-wide collapse with padded L-slot leaves), then a
-    refit at ``worlds`` (identity by default)."""
+    refit at ``worlds`` (identity by default).  lean=False marks the tree
+    for K1's fat mode (and gives it ``attrs4``); anchor_cut > 0 builds the
+    anchor cut (0: none).  Defaults are the reference's; the cut they
+    build is small (at most max(4, 256 // I) boxes per instance, 24 bytes
+    each, from records the build holds anyway), and the renderer passes
+    its own ``anchor_cut``, 0 unless ``sort_anchor`` is set."""
     L = leaf_size
     num_inst = len(mesh_ids)
     assert num_inst < (1 << 11), "instance tag field is 11 bits"
@@ -239,31 +311,55 @@ def build_scene_wide(geom, mesh_ids, leaf_size: int = 16, worlds=None,
     # (kind-3 edges jump from top nodes to mesh roots, larger indices)
     stack = max(128, 6 * tree_depth(kind, a_col) + 16)
 
-    return _assemble(np.concatenate(tris), np.concatenate(attrs), kind,
-                     a_col, b_col, boxes, n_top, top_children, num_inst, L,
-                     stack, worlds, device)
+    sw = _assemble(np.concatenate(tris), np.concatenate(attrs), kind,
+                   a_col, b_col, boxes, n_top, top_children, num_inst, L,
+                   stack, worlds, device, lean)
+    if anchor_cut:
+        a_boxes, a_base = _anchor_cut(mesh_recs, mesh_ids, anchor_cut)
+        sw = sw._replace(anchor_boxes=torch.as_tensor(a_boxes, device=device),
+                         anchor_base=a_base)
+    return sw
 
 
 def from_reference_arrays(nodes, tris, inv_mats, attrs, leaf_size, stack,
-                          n_top, top_children, device=None) -> SceneWideBVH:
+                          n_top, top_children, device=None,
+                          anchor_boxes=None, anchor_base=()) -> SceneWideBVH:
     """The port's structure from the reference SceneWideBVH's arrays as
     numpy: nodes (Nt, 36, 128), tris (Lt, 9L, 128), inv_mats (1+I, 12),
-    attrs (S, >=10).  The BVH is carried across unchanged, so both sides
-    trace the identical tree."""
+    attrs (S, >=10); or, for a tree the reference built with lean=False,
+    attrs None and tris (Lt, 19L, 128) fat columns [geometry 9L | object
+    normals 9L | prim L], whose normals and prim become the attrs rows
+    and which is marked lean=False.  The anchor cut is carried as given.
+    The BVH is carried across unchanged, so both sides trace the
+    identical tree."""
     L = int(leaf_size)
     rows = np.array(nodes, np.float32).transpose(0, 2, 1).reshape(-1, 36)
-    slots = np.array(tris, np.float32).transpose(0, 2, 1).reshape(-1, 9)
+    cols = np.array(tris, np.float32)
+    cols = cols.transpose(0, 2, 1).reshape(-1, cols.shape[1])
     inv_mats = np.array(inv_mats, np.float32)
     num_inst = inv_mats.shape[0] - 1
     kind = rows[:, 24:28].astype(np.int32)
     a_col = rows[:, 28:32].astype(np.int32)
     b_col = rows[:, 32:36].astype(np.int32)
-    attrs = np.asarray(attrs, np.float32)[:, :10]
-    sw = _assemble(slots[:attrs.shape[0]], attrs, kind, a_col, b_col,
-                   rows[:, :24], n_top, top_children, num_inst, L, stack,
-                   None, device)
+    lean = attrs is not None
+    if lean:
+        attrs = np.asarray(attrs, np.float32)[:, :10]
+        slots = cols.reshape(-1, 9)[:attrs.shape[0]]
+    else:                      # every leaf ordinal is one kind-1 child
+        n_leaves = int((kind == 1).sum())
+        cols = cols[:n_leaves]
+        slots = cols[:, :9 * L].reshape(-1, 9)
+        attrs = np.concatenate([cols[:, 9 * L:18 * L].reshape(-1, 9),
+                                cols[:, 18 * L:].reshape(-1, 1)], axis=1)
+    sw = _assemble(slots, attrs, kind, a_col, b_col, rows[:, :24], n_top,
+                   top_children, num_inst, L, stack, None, device, lean)
+    if anchor_boxes is not None:
+        anchor_boxes = torch.as_tensor(np.array(anchor_boxes, np.float32),
+                                       device=device)
     return sw._replace(nodes=torch.as_tensor(rows, device=device),
-                       inv_mats=torch.as_tensor(inv_mats, device=device))
+                       inv_mats=torch.as_tensor(inv_mats, device=device),
+                       anchor_boxes=anchor_boxes,
+                       anchor_base=tuple(int(b) for b in anchor_base))
 
 
 def refit_scene_wide(sw: SceneWideBVH, worlds) -> SceneWideBVH:
@@ -302,23 +398,84 @@ def refit_scene_wide(sw: SceneWideBVH, worlds) -> SceneWideBVH:
     return sw._replace(nodes=nodes, inv_mats=inv_mats)
 
 
-def trace_scene_wide_fused(sw: SceneWideBVH, ray_o, ray_d, t_min, t_max):
+def anchor_ids_scene(sw: SceneWideBVH, ray_o, ray_d):
+    """Nearest-entry anchor id per WORLD-space ray over the per-instance
+    object-space cuts (slab tests through the refit inverse worlds, so
+    animation keeps anchors correct); int64, 0 for a ray that enters no
+    cut box (dead and sky rays: the dead bit leads the sort anyway).
+
+    The reference's anchor_ids_scene (scene_wide.py:387-420) with its
+    padded boxes masked: an instance whose mesh has a smaller cut than the
+    largest is padded with lo = 3e38, hi = -3e38, which passes the
+    reference's slab test at t = 0 for every ray, so there the first such
+    pad wins; here a pad never wins, and the id is the nearest REAL box's.
+    Everything else is the reference's: id 0 is shared by misses and
+    instance 0's first box, t is clamped to 0 from below, of equal t the
+    earlier instance and then the lower box wins."""
+    boxes = sw.anchor_boxes
+    n_inst, K, _ = boxes.shape
+    R = ray_o.shape[0]
+    best_t = torch.full((R,), float("inf"), device=ray_o.device)
+    best_id = torch.zeros(R, dtype=torch.int64, device=ray_o.device)
+    j_all = torch.arange(K, device=ray_o.device)
+    for i in range(n_inst):
+        m = sw.inv_mats[i + 1]
+        oo = ray_o @ m[:9].reshape(3, 3) + m[9:]
+        dd = ray_d @ m[:9].reshape(3, 3)
+        inv = 1.0 / torch.where(dd.abs() < 1e-20, 1e-20, dd)
+        cut = boxes[i]
+        a = (cut[None, :, 0:3] - oo[:, None]) * inv[:, None]     # (R, K, 3)
+        b = (cut[None, :, 3:6] - oo[:, None]) * inv[:, None]
+        tn = torch.minimum(a, b).amax(dim=-1)
+        tf = torch.maximum(a, b).amin(dim=-1)
+        real = j_all < sw.anchor_base[i + 1] - sw.anchor_base[i]
+        ok = (tn <= tf) & (tf >= 0.0) & real
+        tn = torch.where(ok, torch.clamp(tn, min=0.0), float("inf"))
+        j = tn.argmin(dim=1)                       # the first of equal t
+        tn_b = tn.gather(1, j[:, None])[:, 0]
+        upd = tn_b < best_t
+        best_t = torch.where(upd, tn_b, best_t)
+        best_id = torch.where(upd, sw.anchor_base[i] + j, best_id)
+    return best_id
+
+
+def anchor_bits(sw: SceneWideBVH) -> int:
+    """Key bits needed for the scene's anchor ids."""
+    total = sw.anchor_base[-1] if sw.anchor_base else 0
+    return max(1, int(np.ceil(np.log2(max(total, 2))))) if total else 0
+
+
+def trace_scene_wide_fused(sw: SceneWideBVH, ray_o, ray_d, t_min, t_max,
+                           slim: bool = False):
     """Closest hit for WORLD-space rays across all instances in one K1
     launch (its plain version for CPU tensors).  Returns (HitRecord,
     normal): normal is the unnormalised OBJECT-space interpolated vertex
-    normal (zero where missed), resolved with one gather from the static
-    attrs table."""
-    t, u, v, slot, inst = trace_tiles_instanced(
-        sw.nodes, sw.tris4, sw.inv_mats, sw.inst_slots, ray_o.contiguous(),
-        ray_d.contiguous(), t_min, t_max, sw.leaf_size, sw.k1_stack)
-    hit = slot >= 0
-    att = sw.attrs[torch.clamp(slot.to(torch.int64), 0,
-                               sw.attrs.shape[0] - 1)]
-    w0 = (1.0 - u - v)[..., None]
-    nrm = w0 * att[:, 0:3] + u[..., None] * att[:, 3:6] \
-        + v[..., None] * att[:, 6:9]
-    nrm = torch.where(hit[..., None], nrm, 0.0)
-    prim = torch.where(hit, att[:, 9].to(torch.int64), -1)
-    rec = HitRecord(t=t, prim=prim, u=u, v=v, hit=hit,
+    normal (zero where missed).
+
+    Lean (the default): one gather of the static attrs rows resolves the
+    winner's normals and prim.  slim=True launches K1s, which returns only
+    (t, slot, inst), then K1e (``slim_uv``), which recomputes the winner's
+    u, v with one Moller-Trumbore in its instance's object space, from its
+    slot row and its inverse world taken by index (the reference's
+    one-hot matmul), in the walk's own arithmetic, so the slim frame's u,
+    v equal the lean frame's.  A tree built with lean=False launches K1f,
+    which interpolates the normal and takes prim itself; slim needs the
+    lean tree."""
+    o, d = ray_o.contiguous(), ray_d.contiguous()
+    args = (sw.nodes, sw.tris4, sw.inv_mats, sw.inst_slots, o, d, t_min,
+            t_max, sw.leaf_size, sw.k1_stack)
+    if not sw.lean:
+        if slim:
+            raise ValueError("slim requires a lean tree")
+        t, u, v, nrm, prim, inst = trace_tiles_instanced(
+            *args, lean=False, attrs4=sw.attrs4)
+    elif slim:
+        t, slot, inst = trace_tiles_instanced(*args, slim=True)
+        u, v = slim_uv(sw.tris4, sw.inv_mats, o, d, slot, inst)
+        nrm, prim = slot_normals(sw.attrs, slot, u, v)
+    else:
+        t, u, v, slot, inst = trace_tiles_instanced(*args)
+        nrm, prim = slot_normals(sw.attrs, slot, u, v)
+    rec = HitRecord(t=t, prim=prim.to(torch.int64), u=u, v=v, hit=prim >= 0,
                     inst=inst.to(torch.int64))
     return rec, nrm

@@ -1,6 +1,8 @@
 """Traversal-kernel micro-bench: price each kernel-lab variant (K6a, K6b,
 K7) on the card, with a parity gate against K1, and K1 itself (the rows
-``k1``, at the renderer's leaf size, ``k1_l16`` and ``k1_l64``).
+``k1``, at the renderer's leaf size, ``k1_l16`` and ``k1_l64``, and its
+slim and fat modes at the renderer's leaf size, ``k1_slim`` and
+``k1_fat``).
 
 Port of scripts/kbench.py.  Workload: the stand-in model scene
 (``scripts/standin.py``, 81,920 triangles, since ``bunny.obj`` is absent)
@@ -33,7 +35,12 @@ staged rows, so it sizes K6b's from the bound (csrc/lab.cuh), which no
 walk on the tree exceeds.
 
     python -m raytracedggx_tpu_torch.scripts.kbench [frames] [variant...]
-        [--device cpu]
+        [--device cpu] [--rounds N]
+
+``--rounds N`` runs the selected variants N times in turn (A B C A B C
+...) in the one process and then prints each timed variant's median over
+the rounds and its ratio to the first one's: a paired comparison, which
+kbench's spread between processes (a row moves up to ~10%) hides.
 
 Runs on the card and raises without one; ``--device cpu`` runs the plain
 versions for a small-``KB_RES`` rehearsal.  ``KB_SUBDIV`` (default 6) sets
@@ -145,6 +152,8 @@ VARIANTS = [
     ("lean_l16_t32", dict(lean=True, l16=True, tile_s=32)),
     ("alldead", dict(alldead=True)),
     ("k1", dict(k1=True)),
+    ("k1_slim", dict(k1=True, slim=True)),
+    ("k1_fat", dict(k1=True, fat=True)),
     ("k1_l16", dict(k1=True, l16=True)),
     ("k1_l64", dict(k1=True, l64=True)),
 ]
@@ -152,9 +161,10 @@ VARIANT_KW = dict(VARIANTS)
 
 
 def kernel_of(kw) -> str:
-    """Which kernel a variant launches: "K1", "K6a", "K6b" or "K7"."""
+    """Which kernel a variant launches: "K1" (its slim and fat modes "K1s"
+    and "K1f"), "K6a", "K6b" or "K7"."""
     if kw.get("k1"):
-        return "K1"
+        return "K1s" if kw.get("slim") else "K1f" if kw.get("fat") else "K1"
     if "mxu" in kw:
         return "K7"
     return "K6b" if kw.get("leaf_stack") else "K6a"
@@ -225,6 +235,7 @@ class Bench:
         self.geom = upload_scene(self.scene, self.device)
         self.worlds = self.scene.worlds(0.0).to(self.device)
         self._trees, self._k1_t, self._boxes, self._coef = {}, {}, {}, {}
+        self._attrs4 = {}
         W, H, dev = width, height, self.device
 
         cam = Camera(width=W, height=H)
@@ -306,6 +317,14 @@ class Bench:
             self._coef[id(s)] = mxu_stream(s)
         return self._coef[id(s)]
 
+    def attrs4(self, s):
+        """K1f's (S, 12) attrs rows of tree s (built once)."""
+        from ..ops.fused import attrs4_rows
+
+        if id(s) not in self._attrs4:
+            self._attrs4[id(s)] = attrs4_rows(s.attrs)
+        return self._attrs4[id(s)]
+
     def boxes(self, s, kw):
         """The ``sub`` variant's sub-boxes of tree s (built once), else
         None."""
@@ -339,9 +358,11 @@ class Bench:
 
         s, L = self.variant_tree(kw)
         if kw.get("k1"):
-            return trace_tiles_instanced(s.nodes, s.tris4, s.inv_mats,
-                                         s.inst_slots, o, d, t_min, t_max, L,
-                                         s.k1_stack, totals)
+            fat = kw.get("fat", False)
+            return trace_tiles_instanced(
+                s.nodes, s.tris4, s.inv_mats, s.inst_slots, o, d, t_min,
+                t_max, L, s.k1_stack, totals, slim=kw.get("slim", False),
+                lean=not fat, attrs4=self.attrs4(s) if fat else None)
         if "mxu" in kw:
             return trace_tiles_mxu(s.nodes, self.coef(s, L), s.inv_mats,
                                    s.inst_slots, o, d, t_min, t_max, L,
@@ -366,8 +387,11 @@ class Bench:
 
         s, L = self.variant_tree(kw)
         if kw.get("k1"):
-            return trace_instanced_plain(s.tris, s.inv_mats, s.inst_slots, o,
-                                         d, t_min, t_max)
+            fat = kw.get("fat", False)
+            return trace_instanced_plain(
+                s.tris, s.inv_mats, s.inst_slots, o, d, t_min, t_max,
+                slim=kw.get("slim", False), lean=not fat,
+                attrs=s.attrs if fat else None)
         if "mxu" in kw:
             return trace_mxu_plain(self.coef(s, L), s.inv_mats,
                                    s.inst_slots, o, d, t_min, t_max, L)
@@ -444,11 +468,13 @@ class Bench:
 
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    device = "cuda"
-    if "--device" in argv:
-        i = argv.index("--device")
-        device = argv[i + 1]
-        del argv[i:i + 2]
+    opts = {"--device": "cuda", "--rounds": "1"}
+    for flag in opts:
+        if flag in argv:
+            i = argv.index(flag)
+            opts[flag] = argv[i + 1]
+            del argv[i:i + 2]
+    device, rounds = opts["--device"], int(opts["--rounds"])
     frames = int(argv[0]) if argv else 10
     only = set(argv[1:])
     unknown = only - set(VARIANT_KW)
@@ -466,19 +492,30 @@ def main(argv=None) -> int:
     print(f"rays: primary {bench.o_p.shape[0]}, reflection live {live}; "
           f"device {bench.device}", flush=True)
     parity = os.environ.get("KB_PARITY", "1") != "0"
-    bad = []
-    for name, kw in VARIANTS:
-        if only and name not in only:
-            continue
-        try:
-            res = bench.run(name, kw, frames, parity)
-        except Exception as e:  # noqa: BLE001 -- report, run the rest
-            print(f"{name:12s} FAILED: {type(e).__name__}: {str(e)[:300]}",
+    bad, times = [], {}
+    for _ in range(rounds):
+        for name, kw in VARIANTS:
+            if (only and name not in only) or name in bad:
+                continue
+            try:
+                res = bench.run(name, kw, frames, parity)
+            except Exception as e:  # noqa: BLE001 -- report, run the rest
+                print(f"{name:12s} FAILED: {type(e).__name__}: "
+                      f"{str(e)[:300]}", flush=True)
+                bad.append(name)
+                continue
+            if res.get("mismatch"):
+                bad.append(name)
+            if "ms_p" in res:
+                times.setdefault(name, []).append((res["ms_p"], res["ms_r"]))
+    if rounds > 1 and times:
+        med = {k: np.median(np.asarray(v), axis=0) for k, v in times.items()}
+        p0, r0 = next(iter(med.values()))
+        for name, (p, r) in med.items():
+            print(f"{name:12s} median of {len(times[name])} rounds: primary "
+                  f"{p:8.4f} ms   reflection {r:8.4f} ms   ratio to "
+                  f"{next(iter(med))} {p / p0:.4f} / {r / r0:.4f}",
                   flush=True)
-            bad.append(name)
-            continue
-        if res.get("mismatch"):
-            bad.append(name)
     if bad:
         print(f"FAILED or MISMATCH: {' '.join(bad)}", flush=True)
         return 1

@@ -29,9 +29,17 @@ Dropped TPU workarounds that change no output:
   pixels masked to 0, sky pixels env(-V), which the reflection wave
   already sampled), so the port skips its launches there too.
 
-Not ported yet (raise NotImplementedError): ``anchor_fn`` and the
-``dbg_*`` knobs; the bounce sort key keeps the reference's default 3-bit
-octant.
+The reference's off-by-default knobs, with its names and defaults:
+``sort_dir_bits`` (3 or 6 direction-class bits in the bounce sort key),
+``anchor_fn`` / ``anchor_bits`` (each bounce ray's subtree id joins the
+key), and the profiling ablations of the reflection wave:
+``dbg_no_refl_trace`` (t_max all -1), ``dbg_no_secondary_shade`` (hit
+radiance 0), ``dbg_env_mode`` ("no_env": env radiance 0.5 in the hit
+shading, "bilinear": the floor mip only) and ``dbg_miss_lod`` (the env
+LOD of its misses, every sky pixel's among them).  As in the reference,
+the second and third act on the ``trace_fused`` route only, and the
+diffuse wave's misses stay at LOD 0 (the reference's unbucketed path;
+its bucketed prefix, dropped above, gave dead lanes ``dbg_miss_lod``).
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ from ..ops.ordering import BlockOrder, sort_rays_morton
 from ..sh import evaluate_sh_irradiance
 from ..utils.math3d import reflect, saturate
 from .brdf import PI, env_brdf_approx, f_schlick, vis_smith
-from .env import EnvMap, sample_env
+from .env import EnvMap, _bilinear, dir_to_face_uv, sample_env
 from .geometry import fetch_vertices, interp_attribs, interp_from_vertices
 from .sampling import cos_dir, ggx_dir, sample_param
 from .shade import get_base_color, get_rough_metal, get_uv, take_small
@@ -139,21 +147,27 @@ def _trace_ordered_fused(trace_fused, o, d, t_min, t_max, ray_order):
     return rec, fl[:, 3:6]
 
 
-def _trace_shade_ordered_fused(trace_fused, shade_fn, o, d, t_min, t_max,
-                               ray_order):
+def _trace_shade_ordered_fused(trace_fused, shade_fn, env, o, d, t_min,
+                               t_max, ray_order, miss_lod=0.0):
     """Trace AND shade in the sorted ray domain (neighbouring rays tap
-    neighbouring env texels), un-permuting only the radiance.  Returns
+    neighbouring env texels), un-permuting only the radiance.  The miss
+    radiance rides the shading's env tap, or, where shade_fn returns
+    none (the dbg_* ablations), is env(d) at ``miss_lod``.  Returns
     (radiance (R, 3), secondary hit (R,)) in original ray order."""
+    def shade(rec, nrm, o, d):
+        shaded, env_tap = shade_fn(rec, nrm, o, d)
+        if env_tap is None:
+            env_tap = sample_env(env, d, miss_lod)
+        return torch.where(rec.hit[..., None], shaded, env_tap)
+
     if ray_order is None:
         rec, nrm = trace_fused(o, d, t_min, t_max)
-        shaded, env_tap = shade_fn(rec, nrm, o, d)
-        return torch.where(rec.hit[..., None], shaded, env_tap), rec.hit
+        return shade(rec, nrm, o, d), rec.hit
     perm, unperm = _order_fns(ray_order)
     bundle = perm(torch.cat([o, d, _per_ray(t_max, o)[:, None]], dim=-1))
     o_s, d_s = bundle[:, 0:3], bundle[:, 3:6]
     rec, nrm = trace_fused(o_s, d_s, t_min, bundle[:, 6])
-    shaded, env_tap = shade_fn(rec, nrm, o_s, d_s)
-    rad = torch.where(rec.hit[..., None], shaded, env_tap)
+    rad = shade(rec, nrm, o_s, d_s)
     out = unperm(torch.cat([rad, rec.hit[..., None].to(rad.dtype)], dim=-1))
     return out[:, 0:3], out[:, 3] > 0.5
 
@@ -173,19 +187,27 @@ def _mip_level(env: EnvMap, rough):
 
 
 def _spec_env_shade(env: EnvMap, n, v, rough, color, metal, miss_dir=None,
-                    hit=None, miss_lod=0.0):
+                    hit=None, miss_lod=0.0, dbg_mode="full"):
     """computeReflection at the recursion limit (RayTracing.hlsl:442-481).
     With miss_dir the env tap serves double duty: hit lanes sample the
     roughness-filtered spec direction, miss lanes (miss_dir, miss_lod).
-    Returns (spec, env_tap), env_tap None without miss_dir."""
+    dbg_mode (profiling ablation only): "no_env" takes 0.5 for the env
+    radiance, "bilinear" samples the floor mip only; neither taps for the
+    misses.  Returns (spec, env_tap), env_tap None without a miss tap."""
     a = rough * rough
     r = reflect(-v, n)
     k = ((1.0 - a) * (torch.sqrt(torch.clamp(1.0 - a, min=0.0)) + a))[..., None]
     d = n + (r - n) * k                      # lerp(N, R, k), unnormalized
     nol = torch.sum(n * d, dim=-1)
     nov = saturate(torch.sum(n * v, dim=-1))
-    if miss_dir is None:
-        env_tap = None
+    env_tap = None
+    if dbg_mode == "no_env":
+        rad = torch.full_like(d, 0.5)
+    elif dbg_mode == "bilinear":
+        lvl = torch.clamp(_mip_level(env, rough), 0.0, env.num_mips - 1.0)
+        face, uu, vv = dir_to_face_uv(d)
+        rad = _bilinear(env, torch.floor(lvl).to(torch.int64), face, uu, vv)
+    elif miss_dir is None:
         rad = sample_env(env, d, _mip_level(env, rough))
     else:
         tap_d = torch.where(hit[..., None], d, miss_dir)
@@ -199,14 +221,16 @@ def _spec_env_shade(env: EnvMap, n, v, rough, color, metal, miss_dir=None,
 
 def _shade_secondary(consts, mats, env, sh_coeffs, rec, ray_dir,
                      damp_diffuse_albedo, fused_n=None, ray_o=None,
-                     geom=None, mesh_ids=None):
+                     geom=None, mesh_ids=None, miss_lod=0.0,
+                     dbg_env_mode="full"):
     """Closest-hit shading of depth-1 rays (closestHitReflection /
     closestHitDiffuse, RayTracing.hlsl:570-614): metallic > 0.5 takes the
     env-specular route, else SH diffuse (albedo damped by 1 - metallic on
     the diffuse wave).  fused_n: the OBJECT-space interpolated normal from
     K1, the hit point on the ray, and the env tap doubles as the miss
     radiance; without it the attributes come from the hit triangle's
-    vertices (geom, mesh_ids).  Returns (shaded, env_tap or None)."""
+    vertices (geom, mesh_ids).  miss_lod and dbg_env_mode go to
+    ``_spec_env_shade``.  Returns (shaded, env_tap or None)."""
     if fused_n is not None:
         p_world = ray_o + rec.t[..., None] * ray_dir
         pos_obj = world_to_object(consts, rec.inst, p_world)
@@ -222,7 +246,8 @@ def _shade_secondary(consts, mats, env, sh_coeffs, rec, ray_dir,
     color = get_base_color(mats.base_colors, rec.inst)[..., :3]
     spec, env_tap = _spec_env_shade(
         env, n, v, rough, color, metal,
-        miss_dir=ray_dir if fused_n is not None else None, hit=rec.hit)
+        miss_dir=ray_dir if fused_n is not None else None, hit=rec.hit,
+        miss_lod=miss_lod, dbg_mode=dbg_env_mode)
     albedo = color * (1.0 - metal[..., None]) if damp_diffuse_albedo \
         else color
     diff = evaluate_sh_irradiance(sh_coeffs, n) / PI * albedo
@@ -369,7 +394,8 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
                    env: EnvMap, sh_coeffs, width: int, height: int,
                    trace_fused=None, ray_order=None,
                    bary_mode: str = "direct", trace_fn=None, geom=None,
-                   sort_secondary: bool = True, anchor_fn=None,
+                   sort_secondary: bool = True, sort_dir_bits: int = 3,
+                   anchor_fn=None, anchor_bits: int = 0,
                    dbg_no_refl_trace=False, dbg_no_secondary_shade=False,
                    dbg_env_mode="full", dbg_miss_lod=0.0):
     """Full DispatchRays equivalent.  Returns a dict of (H, W, C) images:
@@ -379,12 +405,13 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
     trace_fused (K1) or trace_fn(tlas, o, d, t_min, t_max) -> HitRecord;
     with neither, the plain wavefront traversal over geom's LBVHs.
     ray_order: screen-block order of the primary wave; sort_secondary:
-    dead | octant | Morton order for the bounce waves (else ray_order)."""
-    if (bary_mode not in ("direct", "ndc") or anchor_fn is not None
-            or dbg_no_refl_trace or dbg_no_secondary_shade
-            or dbg_env_mode != "full" or dbg_miss_lod != 0.0):
-        raise NotImplementedError(
-            "anchor_fn and the dbg_* knobs are not ported")
+    dead | direction class (sort_dir_bits) | anchor | Morton order for
+    the bounce waves (else ray_order), the anchor anchor_fn(o, d) of
+    anchor_bits when both are given.  dbg_*: the module docstring."""
+    if bary_mode not in ("direct", "ndc"):
+        raise NotImplementedError(f"bary_mode={bary_mode!r}")
+    if dbg_env_mode not in ("full", "no_env", "bilinear"):
+        raise ValueError(f"dbg_env_mode={dbg_env_mode!r}")
     if trace_fn is None and trace_fused is None:
         trace_fn = default_tracer(geom)
     surf = primary_surface(consts, mats, width, height, trace_fused,
@@ -398,20 +425,32 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
     lo = tlas.aabb_min.amin(dim=0)
     hi = tlas.aabb_max.amax(dim=0)
 
-    def wave(dirs, tmax, damp_diffuse_albedo):
+    def secondary_order(dirs, tmax):
+        aid = (anchor_fn(p, dirs)
+               if anchor_fn is not None and anchor_bits else None)
+        return sort_rays_morton(p, dirs, lo, hi, active=tmax > 0,
+                                dir_bits=sort_dir_bits, anchor=aid,
+                                anchor_bits=anchor_bits)
+
+    def wave(dirs, tmax, damp_diffuse_albedo, miss_lod=0.0,
+             env_mode="full", no_shade=False):
         """(radiance, secondary hit) of a bounce wave.  On the trace_fn
         route the radiance is the hit shading on every lane (the caller
         puts in the miss radiance)."""
-        order = (sort_rays_morton(p, dirs, lo, hi, active=tmax > 0)
-                 if sort_secondary else ray_order)
+        order = secondary_order(dirs, tmax) if sort_secondary else ray_order
         if trace_fused is not None:
             def shade(rec, nrm, o_s, d_s):
+                if no_shade:          # ablation (profiling only)
+                    return torch.zeros_like(o_s), None
                 return _shade_secondary(consts, mats, env, sh_coeffs, rec,
                                         d_s, damp_diffuse_albedo,
-                                        fused_n=nrm, ray_o=o_s)
+                                        fused_n=nrm, ray_o=o_s,
+                                        miss_lod=miss_lod,
+                                        dbg_env_mode=env_mode)
 
-            return _trace_shade_ordered_fused(trace_fused, shade, p, dirs,
-                                              T_MIN_SECONDARY, tmax, order)
+            return _trace_shade_ordered_fused(trace_fused, shade, env, p,
+                                              dirs, T_MIN_SECONDARY, tmax,
+                                              order, miss_lod)
         rec = _trace_ordered(trace_fn, tlas, p, dirs, T_MIN_SECONDARY, tmax,
                              order)
         shaded, _ = _shade_secondary(consts, mats, env, sh_coeffs, rec,
@@ -426,16 +465,22 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
 
     # ---------------- reflection wave (computeReflection, depth 0) -------
     h, nol, trace_dir, tmax_r = reflection_rays(surf, xi)
-    radiance_r, hit_r = wave(trace_dir, tmax_r, False)
+    if dbg_no_refl_trace:       # ablation: kill the wave (profiling only)
+        tmax_r = torch.full_like(tmax_r, -1.0)
+    radiance_r, hit_r = wave(trace_dir, tmax_r, False, dbg_miss_lod,
+                             dbg_env_mode, dbg_no_secondary_shade)
     if trace_fused is not None:
         radiance_r = torch.where(seed_dead & hit_r[..., None], seed,
                                  radiance_r)
         sky_env = radiance_r
     else:
         shaded_r = torch.where(seed_dead, seed, radiance_r)
-        sky_env = sample_env(env, trace_dir, 0.0)
+        env_r = sample_env(env, trace_dir, dbg_miss_lod)
         radiance_r = torch.where(hit_r[..., None] & hit[..., None], shaded_r,
-                                 sky_env)
+                                 env_r)
+        # a sky pixel's diffuse radiance: env(-V) at LOD 0 on this route
+        sky_env = (env_r if dbg_miss_lod == 0.0
+                   else sample_env(env, trace_dir, 0.0))
 
     # primary BRDF weight (RayTracing.hlsl:461-478)
     f0 = 0.04 * (1.0 - metal[..., None]) + color * metal[..., None]

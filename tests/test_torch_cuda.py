@@ -591,3 +591,120 @@ def test_lab_kernels_have_no_frame_or_spills(cuda):
         rows = [r for name, r in reports.items() if key in name]
         assert len(rows) == n and all(r[1:] == (0, 0, 0) for r in rows), \
             (key, rows)
+
+
+def _modes(sw, o, d, t_max, t_min=0.0):
+    """(lean, slim, fat) outputs of K1's three modes on the same rays."""
+    args = (sw.nodes, sw.tris4, sw.inv_mats, sw.inst_slots, o, d, t_min,
+            t_max, sw.leaf_size, sw.k1_stack)
+    return (fused.trace_tiles_instanced(*args),
+            fused.trace_tiles_instanced(*args, slim=True),
+            fused.trace_tiles_instanced(*args, lean=False,
+                                        attrs4=fused.attrs4_rows(sw.attrs)))
+
+
+def _hold_modes(sw, o, d, t_max, t_min=0.0):
+    """K1s and K1f against lean K1 (hit mask, slot or prim and inst exact,
+    t at rtol 1e-6; the fat u, v equal to lean's, its normal equal bit for
+    bit to slot_normals of its own u, v, and at atol 1e-5 of lean's) and against their plain
+    versions at the traversal bar; K1e on K1s's slot and inst gives lean's
+    u, v bit for bit (the walk's arithmetic)."""
+    lean, slim, fat = _modes(sw, o, d, t_max, t_min)
+    n0 = fused.slim_uv.launches
+    u, v = fused.slim_uv(sw.tris4, sw.inv_mats, o, d, slim[1], slim[2])
+    assert fused.slim_uv.launches == n0 + 1
+    assert torch.equal(u, lean[1]) and torch.equal(v, lean[2])
+    hit = lean[3] >= 0
+    nrm, prim = fused.slot_normals(sw.attrs, lean[3], lean[1], lean[2])
+    for got, got_id, want_id in ((slim, slim[1], lean[3]),
+                                 (fat, fat[4], prim)):
+        assert torch.equal(got_id, want_id) and torch.equal(got[-1], lean[4])
+        torch.testing.assert_close(got[0], lean[0], rtol=1e-6, atol=0)
+    # the same walk and leaf test as lean: u, v equal bit for bit
+    assert torch.equal(fat[1], lean[1]) and torch.equal(fat[2], lean[2])
+    assert torch.equal(fat[3], fused.slot_normals(sw.attrs, lean[3], fat[1],
+                                                  fat[2])[0])
+    torch.testing.assert_close(fat[3][hit], nrm[hit], rtol=0, atol=1e-5)
+    ref_s = fused.trace_instanced_plain(sw.tris, sw.inv_mats, sw.inst_slots,
+                                        o, d, t_min, t_max, slim=True)
+    ref_f = fused.trace_instanced_plain(sw.tris, sw.inv_mats, sw.inst_slots,
+                                        o, d, t_min, t_max, lean=False,
+                                        attrs=sw.attrs)
+    torch.cuda.synchronize()
+    _hold(slim[0], slim[1], ref_s[0], ref_s[1], t_max, slim[2], ref_s[2])
+    _hold(fat[0], fat[4], ref_f[0], ref_f[4], t_max, fat[5], ref_f[5])
+
+
+@pytest.mark.parametrize("leaf_size", [8, 64])
+@pytest.mark.parametrize("n_extra", [0, 7])
+def test_k1_slim_and_fat_modes_match_lean_and_plain(cuda, n_extra,
+                                                    leaf_size):
+    """K1s and K1f on the cube scene with 2 or 9 instances; each launch
+    counts on its own mode's counter."""
+    rng = np.random.default_rng(11)
+    extra = tuple((2.5 * i - 5.0, 1.0, 2.5 * ((i * 7) % 3), 0.4)
+                  for i in range(n_extra))
+    scene = Scene(meshes=[ground_cube(), ground_cube()],
+                  materials=default_materials(),
+                  pos_scale=np.array([0.0, 2.0, 0.0, 1.0], np.float32),
+                  extra_instances=extra)
+    sw = build_scene_wide(upload_scene(scene, cuda), scene.mesh_ids,
+                          leaf_size=leaf_size, device=cuda)
+    sw = refit_scene_wide(sw, scene.worlds(1.3).to(cuda))
+    o, d = _rand_rays(rng, 4096, cuda)
+    t_max = torch.where(torch.arange(4096, device=cuda) % 3 == 0, -1.0, 1e4)
+    k = fused.trace_tiles_instanced
+    n0 = (k.launches, k.launches_slim, k.launches_fat)
+    _hold_modes(sw, o, d, t_max)
+    assert (k.launches, k.launches_slim, k.launches_fat) == tuple(
+        n + 1 for n in n0)
+
+
+def test_k1_modes_match_on_model(cuda):
+    """K1s and K1f on the 5,120-triangle stand-in at the renderer's leaf
+    size, from a secondary wave's t_min."""
+    sw = _model_bvh(cuda, 8)
+    o, d, t_max = _model_rays(cuda)
+    _hold_modes(sw, o, d, t_max, 1e-4)
+
+
+def test_k1_mode_wrapper_refuses_bad_inputs(cuda):
+    """slim needs the lean layout, fat its 16-byte aligned (S, 12) attrs4
+    rows, K1e int32 slot and inst of the rays' count and (S, 12) rows;
+    nothing launches."""
+    sw = _model_bvh(cuda, 8)
+    o, d, t_max = _model_rays(cuda, 64)
+    args = (sw.nodes, sw.tris4, sw.inv_mats, sw.inst_slots, o, d, 0.0,
+            t_max, sw.leaf_size, sw.k1_stack)
+    k = fused.trace_tiles_instanced
+    n0 = (k.launches, k.launches_slim, k.launches_fat)
+    attrs4 = fused.attrs4_rows(sw.attrs)
+    shifted = torch.empty(attrs4.numel() + 1, device=cuda)[1:]
+    shifted.copy_(attrs4.reshape(-1))
+    for kw in (dict(slim=True, lean=False, attrs4=attrs4),
+               dict(lean=False), dict(lean=False, attrs4=sw.attrs),
+               dict(lean=False, attrs4=shifted.reshape(-1, 12))):
+        with pytest.raises(ValueError):
+            k(*args, **kw)
+    assert (k.launches, k.launches_slim, k.launches_fat) == n0
+    slot = torch.zeros(64, dtype=torch.int32, device=cuda)
+    n1 = fused.slim_uv.launches
+    for bad in (dict(slot=slot.long()), dict(inst=slot[:63]),
+                dict(tris4=sw.tris)):
+        kw = dict(tris4=sw.tris4, inv_mats=sw.inv_mats, ray_o=o, ray_d=d,
+                  slot=slot, inst=slot)
+        kw.update(bad)
+        with pytest.raises(ValueError):
+            fused.slim_uv(**kw)
+    assert fused.slim_uv.launches == n1
+
+
+def test_k1_instances_have_no_frame_or_spills(cuda):
+    """ptxas gives K1's lean, slim and fat instances no stack frame and
+    no spills."""
+    from raytracedggx_tpu_torch.ops import cuda_lib
+
+    reports = cuda_lib.ptxas_reports(cuda_lib.build()[1])
+    rows = [r for name, r in reports.items()
+            if "trace_instanced_kernel" in name]
+    assert len(rows) == 3 and all(r[1:] == (0, 0, 0) for r in rows), rows
