@@ -59,7 +59,21 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     of the ray's own start triangle); the bound of each JSON row's lab
     variant on kbench's two full sets; last, anchorbench's three orders of
     kbench's reflection set at leaf 8 and 64 (K1 ms, K6a visits per warp,
-    K1's t after un-permutation within kbench's gate).
+    K1's t after un-permutation within kbench's gate);
+ 7. the frame loop and the CLI at 1280x720 on the model scene: on
+    "wide", "wide" with trace_slim, "pallas4" and "pallas", step_n (one
+    frame captured into a CUDA graph and replayed) against a step loop of
+    the same renderer from the same state, bit for bit, at metallic 1 and
+    across a set_metallic to 0.5 (a new capture); each captured frame's
+    launches (counted at capture), the counters over warm-up and capture,
+    and one replayed chunk's kernels by name under torch.profiler;
+    async_compute on against off, bit for bit, and the refit's operations
+    on a second stream in the profiler; ms/frame of the eager step loop
+    and of captured chunks in halves (eager, captured, captured, eager)
+    at metallic 1 and 0.5, with each one's device busy ms/frame and idle
+    share; last, the CLI as a subprocess on the model written to an OBJ
+    (its PNG equal to Renderer's frame after the same 8 steps), with
+    --stage-times, and --interactive with a command script.
 The second-to-last line is a JSON summary of the kernels (launches on
 their path, parity error, kernel / plain times, the bound; K1's, K1s',
 K1f's, K4's and K5's times are of the full primary wave, K2's and K3's of
@@ -113,6 +127,11 @@ LAB_VARIANTS = ("base", "stats", "unordered", "npop1", "npop4", "lean_l16",
                 "mxu32", "mxu16")
 LAB_ROWS = {"K6a": "base", "K6b": "ls_lean_l16", "K7": "mxu32"}
 LAB_FRAMES = 10
+# phase 7: frames per timed half of the eager / captured pairing, and the
+# CLI's frames and interactive script
+LOOP_FRAMES = 10
+CLI_FRAMES = 8
+CLI_SCRIPT = "drag 40 0\nup\na\nv\nrun 2\nquit\n"
 
 
 def check(ok, msg):
@@ -602,29 +621,19 @@ def spatial_check(aux_out, width, height):
 
 
 # ---------------------------------------------------------------- phase 4
-def counters():
-    """(wrapper, attribute) of each launch counter, in COUNTED's order:
-    K1's lean, slim and fat modes, K1s's epilogue K1e, then K2..K5."""
-    from raytracedggx_tpu_torch.ops.fused import slim_uv, trace_tiles_instanced
-    from raytracedggx_tpu_torch.ops.spatial_cuda import (diffuse_pass,
-                                                         reflection_pass)
-    from raytracedggx_tpu_torch.ops.traverse_cuda import trace_tiles_flat
-    from raytracedggx_tpu_torch.ops.wide import trace_tiles4
-
-    return ((trace_tiles_instanced, "launches"),
-            (trace_tiles_instanced, "launches_slim"),
-            (trace_tiles_instanced, "launches_fat"), (slim_uv, "launches"),
-            (reflection_pass, "launches"), (diffuse_pass, "launches"),
-            (trace_tiles_flat, "launches"), (trace_tiles4, "launches"))
-
-
 def zero_counts():
-    for fn, attr in counters():
+    from raytracedggx_tpu_torch.engine.renderer import launch_counters
+
+    for _, fn, attr in launch_counters():
         setattr(fn, attr, 0)
 
 
 def read_counts():
-    return [getattr(fn, attr) for fn, attr in counters()]
+    """The launch counts in COUNTED's order."""
+    from raytracedggx_tpu_torch.engine.renderer import launch_counts
+
+    counts = launch_counts()
+    return [counts[k] for k in COUNTED]
 
 
 def drive_path(renderer, label, timed, metal_frames, per_frame,
@@ -1091,6 +1100,247 @@ def t_min_zero_check(bench, name):
           f"{T_MIN_REFL:g} (a self-hit)")
 
 
+# ---------------------------------------------------------------- phase 7
+def capture_check(r, label, per_frame, per_frame_metal, frames=3,
+                  metal_frames=2):
+    """step_n against a step loop of the same renderer from the same
+    state: at metallic 1, then across a set_metallic to 0.5 (the gates
+    open: a new capture).  Each chunk's last frame, history and previous
+    WVPs must equal the loop's bit for bit; the captured frame's launches
+    (counted at capture) must be the path's, and the counters, set to 0
+    just before the chunk, must read that times the warm-up and capture
+    frames.  Then one replayed chunk under torch.profiler: its kernels by
+    name must be the captured frame's times the frames.  Returns the
+    captured frame's launches at metallic 1 and 0.5."""
+    from raytracedggx_tpu_torch.engine.renderer import CAPTURE_WARMUP
+    from raytracedggx_tpu_torch.scripts.kprofile import KERNELS, profiled
+
+    check(r.captures, f"{label}: step_n captures")
+    s_loop = s_chunk = r.init_state()
+    got_all = []
+    for n, metallic, want in ((frames, 1.0, per_frame),
+                              (metal_frames, 0.5, per_frame_metal)):
+        for mesh_idx in (0, 1):
+            r.set_metallic(mesh_idx, metallic)
+        for _ in range(n):
+            s_loop, f_loop, _ = r.step(s_loop)
+        torch.cuda.synchronize()
+        zero_counts()
+        s_chunk, f_chunk = r.step_n(s_chunk, n)
+        counts = read_counts()
+        torch.cuda.synchronize()
+        same = (torch.equal(f_loop, f_chunk)
+                and torch.equal(s_loop.history, s_chunk.history)
+                and torch.equal(s_loop.prev_wvp, s_chunk.prev_wvp))
+        check(same, f"{label} metallic {metallic:g}: step_n({n}) equals "
+              f"{n} steps bit for bit (frame, history, previous WVPs)")
+        got = [r.capture_launches[k] for k in COUNTED]
+        got_all.append(got)
+        check(got == want, f"{label} metallic {metallic:g}: launches per "
+              f"captured frame {'/'.join(COUNTED)} {got} = {want}")
+        check(counts == [g * (CAPTURE_WARMUP + 1) for g in got],
+              f"{label} metallic {metallic:g}: counters {counts} = the "
+              f"captured frame's over {CAPTURE_WARMUP} warm-up frames and "
+              f"the capture")
+        replays = 2
+        events = profiled(lambda: r.step_n(s_chunk, replays), 1)[0]
+        seen = {k: sum(1 for name, _, _ in events
+                       if any(key in name for key in KERNELS[k]))
+                for k in ("K1", "K2", "K3", "K4", "K5")}
+        seen["K1e"] = sum(1 for name, _, _ in events
+                          if "slim_uv_kernel" in name)
+        by = dict(zip(COUNTED, got))
+        expect = {"K1": by["K1"] + by["K1s"] + by["K1f"], "K1e": by["K1e"],
+                  "K2": by["K2"], "K3": by["K3"], "K4": by["K4"],
+                  "K5": by["K5"]}
+        expect = {k: v * replays for k, v in expect.items()}
+        print(f"  {label} metallic {metallic:g}: {replays} replays under "
+              f"torch.profiler, kernels by name {seen}")
+        check(seen == expect, f"{label} metallic {metallic:g}: the replayed "
+              f"chunk launched {expect} by name")
+    return got_all
+
+
+def loop_timing(r, card, metallic, frames=LOOP_FRAMES):
+    """ms/frame of the eager step loop and of captured step_n chunks, in
+    halves in the order eager, captured, captured, eager (CUDA events
+    around each half of ``frames`` frames; the host's wall beside), then
+    device busy ms/frame and idle share of each under torch.profiler
+    (``frames`` frames: eager steps, or one step_n chunk)."""
+    from raytracedggx_tpu_torch.scripts.kprofile import busy_us, profiled
+
+    for mesh_idx in (0, 1):
+        r.set_metallic(mesh_idx, metallic)
+    box = {"state": r.init_state()}
+
+    def eager():
+        for _ in range(frames):
+            box["state"], _, _ = r.step(box["state"])
+
+    def captured():
+        box["state"], _ = r.step_n(box["state"], frames)
+
+    runs = {"eager": eager, "captured": captured}
+    for fn in runs.values():
+        fn()                                    # warm-up (and capture)
+    res = {k: dict(ms=[], wall=[]) for k in runs}
+    for kind in ("eager", "captured", "captured", "eager"):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        runs[kind]()
+        end.record()
+        end.synchronize()
+        res[kind]["wall"].append((time.perf_counter() - t0) * 1e3 / frames)
+        res[kind]["ms"].append(start.elapsed_time(end) / frames)
+    for kind, fn in runs.items():
+        events, wall = profiled(fn, 1)
+        busy = busy_us(events) / 1e3
+        res[kind].update(busy_ms=busy / frames, idle=1.0 - busy / wall,
+                         ops=len(events) / frames)
+        print(f"  frame loop metallic {metallic:g}, {kind}: "
+              f"{' / '.join(f'{x:.4f}' for x in res[kind]['ms'])} ms/frame "
+              f"(halves; host wall "
+              f"{' / '.join(f'{x:.4f}' for x in res[kind]['wall'])}); "
+              f"device busy {res[kind]['busy_ms']:.4f} ms/frame, idle share "
+              f"{res[kind]['idle']:.4f}, {res[kind]['ops']:.1f} device ops "
+              f"per frame (profiler on; {card})")
+    return res
+
+
+def async_check(r):
+    """async_compute on equals off bit for bit over 3 frames; one async
+    frame under torch.profiler puts the constants' upload and the refit's
+    operations on a stream other than K1's."""
+    out = {}
+    for on in (True, False):
+        r.set_async_compute(on)
+        state = r.init_state()
+        for _ in range(3):
+            state, frame, _ = r.step(state)
+        out[on] = (state, frame)
+    torch.cuda.synchronize()
+    (sa, fa), (sb, fb) = out[True], out[False]
+    check(torch.equal(fa, fb) and torch.equal(sa.history, sb.history),
+          "async_compute on equals off bit for bit (3 frames)")
+    r.set_async_compute(True)
+    state, _, _ = r.step(r.init_state())
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        r.step(state)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ops = [(e.name, e.device_resource_id) for e in prof.events()
+           if e.device_type == cuda]
+    k1 = {sid for name, sid in ops if "trace_instanced_kernel" in name}
+    side = [(name, sid) for name, sid in ops if sid not in k1]
+    streams = sorted({sid for _, sid in ops}, key=str)
+    print(f"  async frame: {len(ops)} device operations on streams "
+          f"{streams}; K1 on {sorted(k1, key=str)}; off K1's stream "
+          f"{len(side)}: {sorted({name[:40] for name, _ in side})[:8]}")
+    r.set_async_compute(False)
+    check(len(k1) == 1 and any("Memcpy HtoD" in name for name, _ in side)
+          and len(side) >= 5, "async_compute: the constants' upload and the "
+          "refit run on a second stream")
+
+
+def cli_check(dev, card):
+    """The CLI on the card: the stand-in model written to an OBJ in a
+    temporary directory; ``-mesh <obj> 0 1 0 1 --frames 8 --out <png>
+    --stats --stage-times`` must exit 0 and its PNG equal the 8-bit image
+    of the frame Renderer gives for the same config after 8 steps (async
+    on, the CLI's default); ``--interactive`` with a command script must
+    exit 0.  The two CLI processes run side by side while this process
+    renders its frame, and all are waited for."""
+    import shutil
+    import tempfile
+
+    from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
+    from raytracedggx_tpu_torch.io.png import tonemapped_u8
+    from raytracedggx_tpu_torch.scene import Scene
+    from raytracedggx_tpu_torch.scripts.standin import model_mesh, write_obj
+
+    tmp = tempfile.mkdtemp(prefix="rtggx-cli-")
+    procs = []
+    try:
+        obj = os.path.join(tmp, "model.obj")
+        write_obj(obj, model_mesh())
+        base = [sys.executable, "-m", "raytracedggx_tpu_torch.engine.cli",
+                "-mesh", obj, "0", "1", "0", "1"]
+        png = os.path.join(tmp, "cli.png")
+        script = os.path.join(tmp, "commands.txt")
+        with open(script, "w") as f:
+            f.write(CLI_SCRIPT)
+        t0 = time.perf_counter()
+        for label, cmd, stdin in (
+                ("frames", base + ["--frames", str(CLI_FRAMES), "--out", png,
+                                   "--stats", "--stage-times"], os.devnull),
+                ("interactive", base + ["--interactive", "--frames-per-cmd",
+                                        "2", "--out",
+                                        os.path.join(tmp, "i.png")],
+                 script)):
+            with open(stdin) as f:
+                procs.append((label, subprocess.Popen(
+                    cmd, cwd=ROOT, text=True, stdin=f,
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE)))
+        scene = Scene.create(obj, pos_scale=(0.0, 1.0, 0.0, 1.0))
+        r = Renderer(scene, config=RenderConfig(async_compute=True),
+                     device=dev)
+        state = r.init_state()
+        for _ in range(CLI_FRAMES):
+            state, frame, _ = r.step(state)
+        want = tonemapped_u8(frame.clamp(0, 1).cpu().numpy())
+        for label, proc in procs:
+            out, err = proc.communicate(timeout=600)
+            for line in out.strip().splitlines()[-8:]:
+                print(f"    | {line}")
+            check(proc.returncode == 0, f"CLI {label} run exits 0 "
+                  f"({time.perf_counter() - t0:.3f} s since both started; "
+                  f"{err.strip()[-300:]})")
+        got = np.round(read_png(png) * 255.0).astype(np.uint8)
+        diff = int(np.abs(got.astype(np.int32) - want).max())
+        check(got.shape == want.shape and diff == 0,
+              f"CLI PNG equals Renderer's {CLI_FRAMES}th frame as 8 bits "
+              f"(max |diff| {diff}; {card})")
+    finally:
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def frame_loop(renderer, per_mesh, dev, card):
+    """Phase 7: step_n's capture on every kernel path, async_compute,
+    the eager and captured ms/frame, the CLI."""
+    from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
+
+    t0 = time.perf_counter()
+    capture_check(renderer, "wide", [2, 0, 0, 0, 2, 0, 0, 0],
+                  [3, 0, 0, 0, 2, 2, 0, 0])
+    slim = Renderer(renderer.scene, config=RenderConfig(trace_slim=True),
+                    device=dev)
+    capture_check(slim, "wide trace_slim", [0, 2, 0, 2, 2, 0, 0, 0],
+                  [0, 3, 0, 3, 2, 2, 0, 0])
+    del slim
+    capture_check(per_mesh["pallas4"], "pallas4", [0, 0, 0, 0, 2, 0, 0, 4],
+                  [0, 0, 0, 0, 2, 2, 0, 6])
+    capture_check(per_mesh["pallas"], "pallas", [0, 0, 0, 0, 2, 0, 4, 0],
+                  [0, 0, 0, 0, 2, 2, 6, 0])
+    t1 = time.perf_counter()
+    async_check(renderer)
+    timing = {m: loop_timing(renderer, card, m) for m in (1.0, 0.5)}
+    t2 = time.perf_counter()
+    cli_check(dev, card)
+    print(f"  phase 7: captures {t1 - t0:.3f} s, async and timing "
+          f"{t2 - t1:.3f} s, CLI {time.perf_counter() - t2:.3f} s")
+    return timing
+
+
 # ---------------------------------------------------------------- main
 def main():
     if not torch.cuda.is_available():
@@ -1273,6 +1523,9 @@ def main():
     res.update(lab_rows)
     anchor_check(bench, card)
 
+    print("== phase 7: frame loop and CLI")
+    timing = frame_loop(renderer, per_mesh, dev, card)
+
     # launches: each kernel's count over its own path's run (K1-K3: "wide")
     meta = [
         ("K1 trace_tiles_instanced", "csrc/traverse.cu",
@@ -1316,6 +1569,10 @@ def main():
           + "; knobs paired: " + "; ".join(
               f"{k} {v['ms']:.4f} ms/frame, metallic 0.5 "
               f"{v['ms_metal']:.4f}" for k, v in knobs.items())
+          + "; frame loop: " + "; ".join(
+              f"metallic {m:g} eager {np.mean(t['eager']['ms']):.4f}, "
+              f"captured {np.mean(t['captured']['ms']):.4f} ms/frame"
+              for m, t in timing.items())
           + f"; {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

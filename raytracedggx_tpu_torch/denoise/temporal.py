@@ -14,6 +14,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..utils.math3d import const
+
 HISTORY_BITS = 4
 HISTORY_MAX = float((1 << HISTORY_BITS) - 1)
 
@@ -106,7 +108,7 @@ def temporal_ss(current, history, velocity):
     hist = _bilinear_clamp_pix(history, qx, qy)
 
     # speed -> blur estimate (:276-283)
-    blurs = torch.abs(vel) * vel.new_tensor([4.0 * w, 4.0 * h])
+    blurs = torch.abs(vel) * const((4.0 * w, 4.0 * h), vel)
     cur_history_blur = blurs[..., 0] + blurs[..., 1]
     history_blur = torch.maximum(1.0 - hist[..., 3], cur_history_blur)
     hist_count = hist[..., 3] * HISTORY_MAX + 1.0

@@ -31,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..trace.traverse import per_ray
 from .cuda_lib import (check_launch, load_library, pointer, require,
                        stream_handle)
 from .flatten import float3_rows
@@ -161,13 +162,6 @@ def build_records4_padded(bvh, leaf_size: int = 8, compact: bool = True):
     return records, tri_stream
 
 
-def _per_ray(t_max, like):
-    """t_max as a contiguous (R,) float32 tensor on the rays' device."""
-    return torch.as_tensor(t_max, dtype=torch.float32,
-                           device=like.device).expand(like.shape[0]
-                                                      ).contiguous()
-
-
 def slot_normals(attrs, slot, u, v):
     """(normal (R, 3), prim int32) of each ray's winning stream slot from
     the (S, >= 10) attrs rows n0 n1 n2 | prim: the unnormalised
@@ -209,13 +203,12 @@ def trace_instanced_plain(tris, inv_mats, inst_slots, ray_o, ray_d, t_min,
     mode = _mode(slim, lean, attrs)
     dev = ray_o.device
     R = ray_o.shape[0]
-    t_max = _per_ray(t_max, ray_o)
+    t_max = per_ray(t_max, ray_o)
     best_t = t_max.clone()
     best_u = torch.zeros(R, device=dev)
     best_v = torch.zeros(R, device=dev)
     best_slot = torch.full((R,), -1, dtype=torch.int32, device=dev)
     best_inst = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    inf = torch.tensor(float("inf"), device=dev)
     for i, slots in enumerate(inst_slots):
         m = inv_mats[i + 1]
         # same order of operations as the kernel's object-space transform
@@ -241,7 +234,7 @@ def trace_instanced_plain(tris, inv_mats, inst_slots, ray_o, ray_d, t_min,
             t = (e2 * qv).sum(-1) * inv_det
             ok = ((u >= 0) & (v >= 0) & (u + v <= 1) & (t >= t_min)
                   & (t <= t_max[sl, None]))
-            tt = torch.where(ok, t, inf)
+            tt = torch.where(ok, t, float("inf"))
             tb = tt.amin(dim=1)
             k = torch.where(ok & (tt == tb[:, None]), lane, n_s).amin(dim=1)
             found = k < n_s
@@ -276,9 +269,12 @@ def trace_tiles_instanced(nodes, tris4, inv_mats, inst_slots, ray_o, ray_d,
     (or raise); CPU tensors take ``trace_instanced_plain`` on the (S, 9)
     slots.  stats: optional (2,) int64 tensor the kernel adds its box and
     triangle tests to.  Launches count per mode: ``launches`` (lean),
-    ``launches_slim``, ``launches_fat``."""
+    ``launches_slim``, ``launches_fat``.
+    Launch counters count calls that launch the kernel: a frame
+    captured into a CUDA graph (``Renderer.step_n``) counts once, at
+    capture, not at each replay."""
     mode = _mode(slim, lean, attrs4)
-    t_max = _per_ray(t_max, ray_o)
+    t_max = per_ray(t_max, ray_o)
     if ray_o.device.type == "cpu":
         return trace_instanced_plain(
             float3_rows(tris4), inv_mats, inst_slots, ray_o, ray_d, t_min,
@@ -364,7 +360,10 @@ def slim_uv(tris4, inv_mats, ray_o, ray_d, slot, inst):
     object-space ray and Moller-Trumbore, so u, v equal lean K1's bit for
     bit; a float32 recompute in another order differs on grazing hits.
     CUDA tensors launch it (or raise); CPU tensors take
-    ``slim_uv_plain`` on the (S, 9) slots."""
+    ``slim_uv_plain`` on the (S, 9) slots.
+    Launch counters count calls that launch the kernel: a frame
+    captured into a CUDA graph (``Renderer.step_n``) counts once, at
+    capture, not at each replay."""
     if ray_o.device.type == "cpu":
         return slim_uv_plain(float3_rows(tris4), inv_mats, ray_o, ray_d,
                              slot, inst)

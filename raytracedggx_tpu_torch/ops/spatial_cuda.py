@@ -125,7 +125,10 @@ def _outputs(src_tm, normal, aux, depth, axis):
 
 def reflection_pass(src_tm, normal, rough, depth, width, height, axis):
     """K2 wrapper: the CUDA kernel for CUDA tensors (or raise), the plain
-    version for CPU tensors."""
+    version for CPU tensors.
+    Launch counters count calls that launch the kernel: a frame
+    captured into a CUDA graph (``Renderer.step_n``) counts once, at
+    capture, not at each replay."""
     if src_tm.device.type == "cpu":
         return reflection_pass_plain(src_tm, normal, rough, depth, width,
                                      height, axis)
@@ -144,7 +147,10 @@ def reflection_pass(src_tm, normal, rough, depth, width, height, axis):
 
 def diffuse_pass(src_tm, normal, metal, depth, axis):
     """K3 wrapper: the CUDA kernel for CUDA tensors (or raise), the plain
-    version for CPU tensors."""
+    version for CPU tensors.
+    Launch counters count calls that launch the kernel: a frame
+    captured into a CUDA graph (``Renderer.step_n``) counts once, at
+    capture, not at each replay."""
     if src_tm.device.type == "cpu":
         return diffuse_pass_plain(src_tm, normal, metal, depth, axis)
     out = _outputs(src_tm, normal, metal, depth, axis)

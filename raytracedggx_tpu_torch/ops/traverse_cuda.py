@@ -20,17 +20,11 @@ from __future__ import annotations
 
 import torch
 
-from ..trace.traverse import HitRecord, merge_instance, trace_bruteforce
+from ..trace.traverse import (HitRecord, merge_instance, per_ray,
+                              trace_bruteforce)
 from .cuda_lib import (check_launch, load_library, pointer, require,
                        stream_handle)
 from .flatten import FlatBVH
-
-
-def per_ray(t_max, like):
-    """t_max as a contiguous (R,) float32 tensor on the rays' device."""
-    return torch.as_tensor(t_max, dtype=torch.float32,
-                           device=like.device).expand(like.shape[0]
-                                                      ).contiguous()
 
 
 def inv_rows(inv_worlds):
@@ -89,7 +83,10 @@ def trace_tiles_flat(flat: FlatBVH, ray_o, ray_d, t_min, t_max, inv=None,
     a tree deeper than the kernel's compiled stack, or rows that are not
     16-byte aligned); CPU tensors take ``trace_stream_plain``.  Returns
     (t, u, v, stream position int32).  stats: optional (2,) int64 tensor
-    the kernel adds its box and triangle tests to."""
+    the kernel adds its box and triangle tests to.
+    Launch counters count calls that launch the kernel: a frame
+    captured into a CUDA graph (``Renderer.step_n``) counts once, at
+    capture, not at each replay."""
     t_max = per_ray(t_max, ray_o)
     if ray_o.device.type == "cpu":
         return trace_stream_plain(flat.tris, ray_o, ray_d, t_min, t_max,

@@ -172,7 +172,10 @@ def trace_tiles4(wide: WideBVH, ray_o, ray_d, t_min, t_max, inv=None,
     ``wide.stack`` exceeds the kernel's compiled 64, or node and ``tris4``
     rows that are not 16-byte aligned); CPU tensors take
     ``trace_stream_plain``.  Returns (t, u, v, stream position int32).
-    stats: optional (2,) int64 tensor for box and triangle tests."""
+    stats: optional (2,) int64 tensor for box and triangle tests.
+    Launch counters count calls that launch the kernel: a frame
+    captured into a CUDA graph (``Renderer.step_n``) counts once, at
+    capture, not at each replay."""
     t_max = per_ray(t_max, ray_o)
     if ray_o.device.type == "cpu":
         return trace_stream_plain(wide.tris, ray_o, ray_d, t_min, t_max,

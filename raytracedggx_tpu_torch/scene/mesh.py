@@ -1,7 +1,6 @@
 """Mesh containers + the procedural ground cube (numpy host data).
 
-Copied from raytracedggx_tpu/scene/mesh.py; ``from_obj`` waits for the
-port of ``io/obj.py``.
+Copied from raytracedggx_tpu/scene/mesh.py.
 
 The reference scene has exactly two meshes (Material.hlsli:5 NUM_MESH=2):
 mesh 0 = a 24-vertex cube used as the ground slab
@@ -14,6 +13,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from ..io.obj import ObjMesh, load_obj
 
 
 @dataclass
@@ -29,6 +30,11 @@ class Mesh:
     def triangles(self) -> np.ndarray:
         """(T, 3, 3) triangle vertex positions."""
         return self.positions[self.indices.reshape(-1, 3)]
+
+
+def from_obj(path: str) -> Mesh:
+    m: ObjMesh = load_obj(path, need_norm=True, for_dx=True)
+    return Mesh(m.positions, m.normals, m.indices)
 
 
 def ground_cube() -> Mesh:

@@ -7,7 +7,7 @@ frame (RayTracer::UpdateFrame, RayTracer.cpp:269-279):
 - mesh 1 (model):  scaling(s) * rotationY(angle) * translation(pos)
 
 Matrices are row-vector (``p @ M``) float32 CPU tensors; callers move them
-to their device.  ``Scene.create`` (OBJ loading) waits for ``io/obj.py``.
+to their device.  ``Scene.create`` loads the model from an OBJ file.
 """
 
 from __future__ import annotations
@@ -19,8 +19,8 @@ import numpy as np
 import torch
 
 from ..utils import math3d as m3
-from .mesh import Mesh
-from .material import Materials
+from .material import Materials, default_materials
+from .mesh import Mesh, from_obj, ground_cube
 
 GROUND = 0
 MODEL = 1
@@ -36,6 +36,18 @@ class Scene:
     # additional animated model instances, each (x, y, z, scale)
     extra_instances: tuple = ()
     ground_scale: float = 8.0
+
+    @staticmethod
+    def create(model_path: str, pos_scale=(0.0, 0.0, 0.0, 1.0),
+               materials: Materials | None = None,
+               extra_instances: tuple = ()) -> "Scene":
+        return Scene(
+            meshes=[ground_cube(), from_obj(model_path)],
+            materials=materials or default_materials(),
+            pos_scale=np.asarray(pos_scale, np.float32),
+            extra_instances=tuple(tuple(float(v) for v in e)
+                                  for e in extra_instances),
+        )
 
     @property
     def mesh_ids(self):

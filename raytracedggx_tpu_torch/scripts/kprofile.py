@@ -15,6 +15,11 @@ activities), it prints:
   union of the device operations' intervals), the idle share of the wall,
   device operations per frame, and device ms per frame of the top kernels
   by name, with the share of the busy time that K1, K2 and K3 take;
+* the same for the captured frame (``Renderer.step_n``, one frame
+  captured into a CUDA graph and replayed): ms per frame of one chunk of
+  60 (10 at metallic 0.5) frames between CUDA events, and one profiled
+  chunk of ``frames`` frames, so the device's own time per frame shows
+  once the host is out of the way;
 * host time per frame by Python function (cProfile over ``frames``
   default frames, ending in a synchronize): the top functions by their
   own time, so a frame that waits on the host shows where;
@@ -141,6 +146,19 @@ def frames_ms(renderer, state, n):
     return state, start.elapsed_time(end) / n
 
 
+def chunk_ms(renderer, state, n):
+    """(state, ms per frame of one captured step_n chunk of n frames
+    between CUDA events), after a chunk that captures and warms it."""
+    state, _ = renderer.step_n(state, n)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, _ = renderer.step_n(state, n)
+    end.record()
+    end.synchronize()
+    return state, start.elapsed_time(end) / n
+
+
 def frame_profile(renderer, state, n, label):
     """Profile n frames; returns (state, last aux dict, summary)."""
     box = {"state": state}
@@ -149,6 +167,24 @@ def frame_profile(renderer, state, n, label):
         box["state"], _, box["aux"] = renderer.step(box["state"])
 
     ev, wall = profiled(step, n)
+    return box["state"], box["aux"], summarize(ev, wall, n, label)
+
+
+def chunk_profile(renderer, state, n, label):
+    """Profile one captured step_n chunk of n frames; (state, summary)."""
+    box = {"state": state}
+
+    def chunk():
+        box["state"], _ = renderer.step_n(box["state"], n)
+
+    ev, wall = profiled(chunk, 1)
+    return box["state"], summarize(ev, wall, n, label)
+
+
+def summarize(ev, wall, n, label):
+    """Per frame of n frames profiled in ``wall`` host ms: the wall,
+    device busy ms, idle share, device operations and the top kernels by
+    name, each kernel's share of the busy time."""
     busy = busy_us(ev) / 1e3
     by_name = {}
     for name, a, b in ev:
@@ -171,7 +207,7 @@ def frame_profile(renderer, state, n, label):
           flush=True)
     for name, ms in res["top"].items():
         print(f"    {ms:9.4f} ms/frame  {name}")
-    return box["state"], box["aux"], res
+    return res
 
 
 def host_profile(renderer, state, n):
@@ -288,6 +324,11 @@ def main(argv=None) -> int:
     state, out["frame_ms"] = frames_ms(renderer, state, TIMED)
     print(f"frame: {out['frame_ms']:.4f} ms over {TIMED} frames", flush=True)
     state, _, out["frame"] = frame_profile(renderer, state, n, "frame")
+    state, out["captured_frame_ms"] = chunk_ms(renderer, state, TIMED)
+    print(f"captured frame: {out['captured_frame_ms']:.4f} ms over one "
+          f"step_n chunk of {TIMED} frames", flush=True)
+    state, out["captured_frame"] = chunk_profile(renderer, state, n,
+                                                 "captured frame")
     state, out["host"] = host_profile(renderer, state, n)
     for mesh_idx in (0, 1):
         renderer.set_metallic(mesh_idx, 0.5)
@@ -298,6 +339,13 @@ def main(argv=None) -> int:
           f"{TIMED_METAL} frames", flush=True)
     state, aux, out["frame_metal"] = frame_profile(renderer, state, n,
                                                    "frame metallic 0.5")
+    state, out["captured_frame_metal_ms"] = chunk_ms(renderer, state,
+                                                     TIMED_METAL)
+    print(f"captured frame metallic 0.5: "
+          f"{out['captured_frame_metal_ms']:.4f} ms over one step_n chunk "
+          f"of {TIMED_METAL} frames", flush=True)
+    state, out["captured_frame_metal"] = chunk_profile(
+        renderer, state, n, "captured frame metallic 0.5")
 
     normal, depth = aux["normal"], aux["depth"]
     rough = aux["rough_metal"][..., 0].contiguous()

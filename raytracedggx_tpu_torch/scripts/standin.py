@@ -1,10 +1,11 @@
 """Procedural stand-in scenes for the port's drives and benches.
 
 The reference's benches load ``bunny.obj``, which is in neither the repo
-nor the machines that run the port (and the OBJ loader is not ported), so
-the port renders a deterministic model of the bunny's scale instead:
-an icosphere subdivided 6 times (81,920 triangles), radially displaced by
-a fixed smooth function of direction, over the ground cube.
+nor the machines that run the port, so the port renders a deterministic
+model of the bunny's scale instead: an icosphere subdivided 6 times
+(81,920 triangles), radially displaced by a fixed smooth function of
+direction, over the ground cube.  ``write_obj`` writes a mesh as an OBJ
+file that ``io/obj.load_obj`` reads back as the same mesh, for the CLI.
 """
 
 from __future__ import annotations
@@ -72,3 +73,18 @@ def nested_scene():
                  materials=default_materials(),
                  pos_scale=np.array([0.0, 2.0, 0.0, 1.0], np.float32),
                  extra_instances=extra)
+
+
+def write_obj(path, mesh):
+    """Write a Mesh as a Wavefront OBJ (``v``, ``vn``, ``f v//vn``) that
+    ``load_obj``'s DirectX conversion (z negated, the index buffer
+    reversed) reads back as this mesh: z is written negated and the
+    index buffer reversed, and each vertex has its own normal (no vertex
+    splits).  Nine significant digits keep every float32 exact."""
+    pos = np.asarray(mesh.positions, np.float32) * np.float32([1, 1, -1])
+    nrm = np.asarray(mesh.normals, np.float32) * np.float32([1, 1, -1])
+    idx = np.asarray(mesh.indices, np.int64)[::-1].reshape(-1, 3) + 1
+    with open(path, "w") as f:
+        f.writelines(f"v {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in pos)
+        f.writelines(f"vn {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in nrm)
+        f.writelines(f"f {a}//{a} {b}//{b} {c}//{c}\n" for a, b, c in idx)

@@ -10,6 +10,8 @@ import math
 
 import torch
 
+from ..utils.math3d import const
+
 PI = math.pi
 
 
@@ -31,8 +33,8 @@ def f_schlick(f0, voh):
 
 def env_brdf_approx(f0, roughness, nov):
     """EnvBRDFApprox (BRDFModels.hlsli:64-77)."""
-    c0 = f0.new_tensor([-1.0, -0.0275, -0.572, 0.022])
-    c1 = f0.new_tensor([1.0, 0.0425, 1.04, -0.04])
+    c0 = const((-1.0, -0.0275, -0.572, 0.022), f0)
+    c1 = const((1.0, 0.0425, 1.04, -0.04), f0)
     r = roughness[..., None] * c0 + c1
     a004 = (torch.minimum(r[..., 0] * r[..., 0], torch.exp2(-9.28 * nov))
             * r[..., 0] + r[..., 1])

@@ -15,6 +15,8 @@ from typing import List, NamedTuple
 import numpy as np
 import torch
 
+from ..utils.math3d import const
+
 
 class EnvMap(NamedTuple):
     data: torch.Tensor     # (N, 3) float32: all mips, faces row-major
@@ -23,6 +25,8 @@ class EnvMap(NamedTuple):
     num_mips: int
     quad: torch.Tensor     # (N, 12) float32 edge-clamped 2x2 footprints
     tri: torch.Tensor      # (N, 39) float16: own quad | parent 3x3 window
+    sizes_host: tuple      # sizes and offsets as python ints, so a lookup
+    offsets_host: tuple    # at a python mip reads no device tensor
 
 
 def _pack_tables(mips: List[np.ndarray]):
@@ -72,7 +76,9 @@ def from_reference_arrays(data, offsets, sizes, num_mips, quad, tri,
                   sizes=dev(sizes, torch.int64),
                   num_mips=int(num_mips),
                   quad=dev(quad, torch.float32),
-                  tri=dev(tri, torch.float16))
+                  tri=dev(tri, torch.float16),
+                  sizes_host=tuple(int(x) for x in np.array(sizes)),
+                  offsets_host=tuple(int(x) for x in np.array(offsets)))
 
 
 def pack_mips(mips: List[np.ndarray], device=None) -> EnvMap:
@@ -143,7 +149,7 @@ def _bilinear(env: EnvMap, mip, face, u, v):
         s, off = env.sizes[mip], env.offsets[mip]
         sf = s.to(torch.float32)
     else:
-        s, off = int(env.sizes[mip]), int(env.offsets[mip])
+        s, off = env.sizes_host[mip], env.offsets_host[mip]
         sf = u.new_full((), float(s))
     x0, y0, fx, fy = _texel(u, v, sf)
     idx = off + (face * s + y0.to(torch.int64)) * s + x0.to(torch.int64)
@@ -158,9 +164,10 @@ def sample_env(env: EnvMap, d, level=0.0):
     if not torch.is_tensor(level) and float(level) == int(level):
         m = int(np.clip(level, 0, env.num_mips - 1))
         return _bilinear(env, m, face, u, v)
-    level = torch.clamp(torch.as_tensor(level, dtype=torch.float32,
-                                        device=d.device).expand(face.shape),
-                        0.0, env.num_mips - 1.0)
+    if not torch.is_tensor(level):
+        level = u.new_full(face.shape, float(level))
+    level = torch.clamp(level.to(torch.float32).expand(face.shape), 0.0,
+                        env.num_mips - 1.0)
     m0 = torch.floor(level).to(torch.int64)
     f = (level - m0.to(torch.float32))[..., None]
     return _trilinear_packed(env, m0, f, face, u, v)
@@ -207,11 +214,11 @@ def procedural_sky(d):
     """The reference's built-in sky (RayTracing.hlsl:172-178): vertical
     gradient *3 + a hard sun disk along normalize(-1, 1, -1)."""
     d = d / torch.linalg.norm(d, dim=-1, keepdim=True)
-    sun_dir = d.new_tensor([-1.0, 1.0, -1.0])
+    sun_dir = const((-1.0, 1.0, -1.0), d)
     sun_dir = sun_dir / torch.linalg.norm(sun_dir)
     sun_amt = torch.clamp(torch.sum(d * sun_dir, dim=-1), 0.0, 1.0)
     a = d[..., 1] * 0.5 + 0.5
-    base = d.new_tensor([0.0, 0.16, 0.64])
+    base = const((0.0, 0.16, 0.64), d)
     color = base + (1.0 - base) * a[..., None]
     return color * 3.0 + torch.where(sun_amt > 0.9995, 7.0, 0.0)[..., None]
 

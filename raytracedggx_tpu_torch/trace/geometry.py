@@ -13,6 +13,7 @@ that reads them; the ``"wide"`` path reads none of them.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -103,16 +104,22 @@ def upload_scene(scene, device=None, traversal: str = "wide",
         wide=trees(flatten_bvh4) if traversal == "pallas4" else ())
 
 
+@functools.lru_cache(maxsize=None)
+def _instance_rows(offsets, limits, device):
+    """Per-instance first attribute row and last triangle, built once per
+    scene layout and device (a per-frame tensor would copy from the host)."""
+    return (torch.tensor(offsets, device=device),
+            torch.tensor(limits, device=device))
+
+
 def fetch_vertices(geom: SceneGeometry, mesh_ids, inst, prim):
     """getVertices (RayTracing.hlsl:230-244): the 3 object-space vertex
     positions and normals of (inst, prim), one gather from the packed
     table.  Returns ((R, 3, 3), (R, 3, 3)); where inst is not an instance
     (a miss) row 0 is read and the caller masks."""
-    dev = inst.device
-    off = torch.as_tensor([geom.attrib_off[m] for m in mesh_ids],
-                          device=dev)
-    lim = torch.as_tensor([geom.meshes[m].tri.shape[0] - 1
-                           for m in mesh_ids], device=dev)
+    off, lim = _instance_rows(
+        tuple(geom.attrib_off[m] for m in mesh_ids),
+        tuple(geom.meshes[m].tri.shape[0] - 1 for m in mesh_ids), inst.device)
     valid = (inst >= 0) & (inst < len(mesh_ids))
     ic = torch.clamp(inst, 0, len(mesh_ids) - 1)
     row = torch.where(valid, off[ic] + torch.clamp(prim, min=0).minimum(

@@ -23,11 +23,14 @@ Dropped TPU workarounds that change no output:
   (raygen.py:200-310): the kernels run over the whole sorted wave, and
   dead rays (t_max < 0) return at once;
 - ``take_small``'s one-hot matmul is an index gather (trace/shade.py);
-- the diffuse wave's runtime gate is a host-side ``bool(any())`` on both
-  routes.  The reference gates only the fused route (raygen.py:769-777);
-  on the ``trace_fn`` route an all-dead wave gives the same output (hit
-  pixels masked to 0, sky pixels env(-V), which the reflection wave
-  already sampled), so the port skips its launches there too.
+- the diffuse wave's runtime gate (``lax.cond`` on "any hit pixel with
+  metallic < 1", raygen.py:769-777) is decided on the host from the
+  materials (``diffuse``): a frame makes no host sync, so it can be
+  captured into a CUDA graph.  The wave runs when any instance has
+  metallic < 1; where no pixel passes the per-pixel gate it is an exact
+  identity (hit pixels masked to 0, sky pixels env(-V), which the
+  reflection wave already sampled; tests/test_torch_frame_loop.py).  The
+  reference gates only the fused route; the port gates both.
 
 The reference's off-by-default knobs, with its names and defaults:
 ``sort_dir_bits`` (3 or 6 direction-class bits in the bounce sort key),
@@ -50,13 +53,13 @@ import torch
 
 from ..ops.ordering import BlockOrder, sort_rays_morton
 from ..sh import evaluate_sh_irradiance
-from ..utils.math3d import reflect, saturate
+from ..utils.math3d import const, reflect, saturate
 from .brdf import PI, env_brdf_approx, f_schlick, vis_smith
 from .env import EnvMap, _bilinear, dir_to_face_uv, sample_env
 from .geometry import fetch_vertices, interp_attribs, interp_from_vertices
 from .sampling import cos_dir, ggx_dir, sample_param
 from .shade import get_base_color, get_rough_metal, get_uv, take_small
-from .traverse import HitRecord, trace_scene
+from .traverse import HitRecord, per_ray, trace_scene
 
 PRIMITIVE_BITS = 24
 T_MIN_SECONDARY = 1e-5
@@ -84,11 +87,6 @@ class MaterialsDev(NamedTuple):
 def _normalize(v):
     return v / torch.clamp(torch.linalg.norm(v, dim=-1, keepdim=True),
                            min=1e-20)
-
-
-def _per_ray(t_max, like):
-    return torch.as_tensor(t_max, dtype=torch.float32,
-                           device=like.device).expand(like.shape[0])
 
 
 def _order_fns(ray_order):
@@ -121,7 +119,7 @@ def _trace_ordered(trace_fn, tlas, o, d, t_min, t_max, ray_order):
     if ray_order is None:
         return trace_fn(tlas, o, d, t_min, t_max)
     perm, unperm = _order_fns(ray_order)
-    bundle = perm(torch.cat([o, d, _per_ray(t_max, o)[:, None]], dim=-1))
+    bundle = perm(torch.cat([o, d, per_ray(t_max, o)[:, None]], dim=-1))
     rec = trace_fn(tlas, bundle[:, 0:3], bundle[:, 3:6], t_min,
                    bundle[:, 6])
     fl = unperm(torch.stack([rec.t, rec.u, rec.v, rec.hit.to(rec.t.dtype)],
@@ -136,7 +134,7 @@ def _trace_ordered_fused(trace_fused, o, d, t_min, t_max, ray_order):
     if ray_order is None:
         return trace_fused(o, d, t_min, t_max)
     perm, unperm = _order_fns(ray_order)
-    bundle = perm(torch.cat([o, d, _per_ray(t_max, o)[:, None]], dim=-1))
+    bundle = perm(torch.cat([o, d, per_ray(t_max, o)[:, None]], dim=-1))
     rec, nrm = trace_fused(bundle[:, 0:3], bundle[:, 3:6], t_min,
                            bundle[:, 6])
     fl = unperm(torch.cat([torch.stack([rec.t, rec.u, rec.v], dim=-1), nrm],
@@ -164,7 +162,7 @@ def _trace_shade_ordered_fused(trace_fused, shade_fn, env, o, d, t_min,
         rec, nrm = trace_fused(o, d, t_min, t_max)
         return shade(rec, nrm, o, d), rec.hit
     perm, unperm = _order_fns(ray_order)
-    bundle = perm(torch.cat([o, d, _per_ray(t_max, o)[:, None]], dim=-1))
+    bundle = perm(torch.cat([o, d, per_ray(t_max, o)[:, None]], dim=-1))
     o_s, d_s = bundle[:, 0:3], bundle[:, 3:6]
     rec, nrm = trace_fused(o_s, d_s, t_min, bundle[:, 6])
     rad = shade(rec, nrm, o_s, d_s)
@@ -353,7 +351,7 @@ def primary_surface(consts: FrameConstants, mats: MaterialsDev, width: int,
                              take_small(consts.world_view_projs_prev,
                                         rec.inst))
     velocity = ((ndc - prev_clip[..., :2] / prev_clip[..., 3:4])
-                * ndc.new_tensor([0.5, -0.5]))
+                * const((0.5, -0.5), ndc))
     velocity = torch.where(hit3, velocity, 0.0)
 
     # raster-equivalent depth for the denoiser (z_clip / w of the hit)
@@ -372,9 +370,8 @@ def primary_surface(consts: FrameConstants, mats: MaterialsDev, width: int,
 
 def pixel_samples(width, height, frame_index, device):
     """(R, 2) per-pixel sample parameters of a frame (getSampleParam)."""
-    px = torch.arange(width, device=device).repeat(height)
-    py = torch.arange(height, device=device).repeat_interleave(width)
-    return sample_param(px, py, width, frame_index)
+    idx = torch.arange(width * height, device=device)
+    return sample_param(idx % width, idx // width, width, frame_index)
 
 
 def reflection_rays(surf, xi):
@@ -397,7 +394,7 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
                    sort_secondary: bool = True, sort_dir_bits: int = 3,
                    anchor_fn=None, anchor_bits: int = 0,
                    dbg_no_refl_trace=False, dbg_no_secondary_shade=False,
-                   dbg_env_mode="full", dbg_miss_lod=0.0):
+                   dbg_env_mode="full", dbg_miss_lod=0.0, diffuse=None):
     """Full DispatchRays equivalent.  Returns a dict of (H, W, C) images:
     refl, diff (radiance), normal (xyz*0.5+0.5 + hit alpha), rough_metal,
     velocity, depth, vis (int64).
@@ -407,7 +404,10 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
     ray_order: screen-block order of the primary wave; sort_secondary:
     dead | direction class (sort_dir_bits) | anchor | Morton order for
     the bounce waves (else ray_order), the anchor anchor_fn(o, d) of
-    anchor_bits when both are given.  dbg_*: the module docstring."""
+    anchor_bits when both are given.  dbg_*: the module docstring.
+    diffuse: run the diffuse wave (the host's gate, module docstring);
+    None decides it from ``mats.rough_metals``, a read of the device
+    tensor (the renderer passes its own decision)."""
     if bary_mode not in ("direct", "ndc"):
         raise NotImplementedError(f"bary_mode={bary_mode!r}")
     if dbg_env_mode not in ("full", "no_env", "bilinear"):
@@ -496,12 +496,14 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
                        radiance_r)
 
     # ---------------- diffuse wave (computeDiffuse, depth 0) -------------
-    # Gated on the host: with every hit pixel fully metallic (the default
+    # Gated on the host: with no instance below metallic 1 (the default
     # materials) no diffuse ray is live, every hit pixel's diff is masked
     # to 0 below, and a sky pixel's diff is env(-V), which the reflection
     # wave already sampled (its trace_dir is -V there and cannot hit).
+    if diffuse is None:
+        diffuse = bool((mats.rough_metals[:, 1] < 1.0).any())
     tmax_d = torch.where(hit & (metal < 1.0), T_MAX, -1.0)
-    if bool((tmax_d > 0.0).any()):
+    if diffuse:
         d_dir = cos_dir(n, xi)
         trace_dir_d = torch.where(hit[..., None], d_dir, -v)
         radiance_d, hit_d = wave(trace_dir_d, tmax_d, True)

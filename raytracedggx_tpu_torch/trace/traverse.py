@@ -30,9 +30,13 @@ class HitRecord(NamedTuple):
     inst: torch.Tensor     # (R,) int64 instance id (-1 = miss)
 
 
-def _per_ray(x, like):
-    return torch.as_tensor(x, dtype=torch.float32,
-                           device=like.device).expand(like.shape[0])
+def per_ray(x, like):
+    """x (a python number or a tensor broadcasting to (R,)) as a
+    contiguous (R,) float32 tensor on the rays' device; a number is filled
+    in on the device, with no copy from the host."""
+    if torch.is_tensor(x):
+        return x.to(torch.float32).expand(like.shape[0]).contiguous()
+    return torch.full((like.shape[0],), float(x), device=like.device)
 
 
 def trace_rays(bvh: LBVH, tri_v0, tri_e1, tri_e2, ray_o, ray_d, t_min,
@@ -44,8 +48,8 @@ def trace_rays(bvh: LBVH, tri_v0, tri_e1, tri_e2, ray_o, ray_d, t_min,
     n_int = bvh.num_internal
     n_leaves = bvh.num_leaves
     inv_d = safe_inv_dir(ray_d)
-    t_min = _per_ray(t_min, ray_o)
-    best_t = _per_ray(t_max, ray_o).clone()
+    t_min = per_ray(t_min, ray_o)
+    best_t = per_ray(t_max, ray_o).clone()
 
     # cheap root cull so rays that miss the whole mesh take no step
     _, active = ray_aabb(ray_o, inv_d, bvh.aabb_min[0], bvh.aabb_max[0],
@@ -112,8 +116,8 @@ def trace_bruteforce(tri_v0, tri_e1, tri_e2, ray_o, ray_d, t_min, t_max,
     among equal nearest t the LAST triangle wins; this does the same."""
     R, T = ray_o.shape[0], tri_v0.shape[0]
     dev = ray_o.device
-    t_min = _per_ray(t_min, ray_o)
-    t_max = _per_ray(t_max, ray_o)
+    t_min = per_ray(t_min, ray_o)
+    t_max = per_ray(t_max, ray_o)
     best_t = t_max.clone()
     best_prim = torch.full((R,), -1, dtype=torch.int64, device=dev)
     best_u = torch.zeros(R, device=dev)

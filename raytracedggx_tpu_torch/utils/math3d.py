@@ -7,6 +7,8 @@ are built on the CPU (they are tiny); callers move them to a device.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 
@@ -42,12 +44,34 @@ def look_at_lh(eye, focus, up):
     return m
 
 
+def rotation_x(angle):
+    """XMMatrixRotationX equivalent (row-vector convention)."""
+    a = _f32(angle)
+    c, s = torch.cos(a), torch.sin(a)
+    m = torch.eye(4, dtype=torch.float32)
+    m[1, 1], m[1, 2], m[2, 1], m[2, 2] = c, s, -s, c
+    return m
+
+
 def rotation_y(angle):
     """XMMatrixRotationY equivalent (row-vector convention)."""
     a = _f32(angle)
     c, s = torch.cos(a), torch.sin(a)
     m = torch.eye(4, dtype=torch.float32)
     m[0, 0], m[0, 2], m[2, 0], m[2, 2] = c, -s, s, c
+    return m
+
+
+def rotation_roll_pitch_yaw(pitch, yaw, roll=0.0):
+    """XMMatrixRotationRollPitchYaw equivalent: Rz(roll) @ Rx(pitch) @
+    Ry(yaw) in row-vector order."""
+    m = rotation_x(pitch) @ rotation_y(yaw)
+    if roll != 0.0:
+        a = _f32(roll)
+        c, s = torch.cos(a), torch.sin(a)
+        rz = torch.eye(4, dtype=torch.float32)
+        rz[0, 0], rz[0, 1], rz[1, 0], rz[1, 1] = c, s, -s, c
+        m = rz @ m
     return m
 
 
@@ -77,3 +101,16 @@ def saturate(x):
 def smoothstep(e0, e1, x):
     t = torch.clamp((x - e0) / (e1 - e0), 0.0, 1.0)
     return t * t * (3.0 - 2.0 * t)
+
+
+def const(values, like):
+    """The small constant tensor ``values`` on ``like``'s device and dtype,
+    built once per (values, dtype, device).  A ``new_tensor`` per frame
+    copies from pageable host memory and waits on the stream, which a
+    frame captured into a CUDA graph cannot do."""
+    return _const(tuple(values), like.dtype, like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _const(values, dtype, device):
+    return torch.tensor(values, dtype=dtype, device=device)

@@ -708,3 +708,108 @@ def test_k1_instances_have_no_frame_or_spills(cuda):
     rows = [r for name, r in reports.items()
             if "trace_instanced_kernel" in name]
     assert len(rows) == 3 and all(r[1:] == (0, 0, 0) for r in rows), rows
+
+
+def _cube_renderer(device, **cfg):
+    from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
+
+    scene = Scene(meshes=[ground_cube(), ground_cube()],
+                  materials=default_materials(),
+                  pos_scale=np.array([0.0, 3.0, 0.0, 1.0], np.float32))
+    return Renderer(scene, config=RenderConfig(width=96, height=54, **cfg),
+                    device=device)
+
+
+def _same_frames(a, b):
+    (sa, fa), (sb, fb) = a, b
+    torch.cuda.synchronize()
+    assert torch.equal(fa, fb) and torch.equal(sa.history, sb.history)
+    assert torch.equal(sa.prev_wvp, sb.prev_wvp) and sa.frame == sb.frame
+
+
+@pytest.mark.parametrize("cfg,per_frame", [
+    (dict(traversal="wide"), ("K1", 2, 3)),
+    (dict(traversal="wide", trace_slim=True), ("K1s", 2, 3)),
+    (dict(traversal="pallas4"), ("K5", 4, 6)),
+    (dict(traversal="pallas"), ("K4", 4, 6)),
+])
+def test_step_n_capture_equals_step_loop(cuda, cfg, per_frame):
+    """step_n replays one captured frame; its frames and states equal a
+    step loop's bit for bit, at metallic 1 and, across a set_metallic
+    that opens the gates (a new capture), at 0.5; the captured frame's
+    launches are the path's (K2 twice; K3 twice at metallic 0.5)."""
+    r = _cube_renderer(cuda, **cfg)
+    assert r.captures
+    s_loop = s_chunk = r.init_state()
+    kernel, n1, n05 = per_frame
+    for n, metallic in ((4, None), (3, 0.5)):
+        if metallic is not None:
+            r.set_metallic(0, metallic)
+            r.set_metallic(1, metallic)
+        for _ in range(n):
+            s_loop, f_loop, _ = r.step(s_loop, 1 / 30)
+        s_chunk, f_chunk = r.step_n(s_chunk, n, 1 / 30)
+        _same_frames((s_loop, f_loop), (s_chunk, f_chunk))
+        want = n05 if metallic else n1
+        got = r.capture_launches
+        assert got[kernel] == want and got["K2"] == 2, got
+        assert got["K3"] == (2 if metallic else 0), got
+
+
+def test_step_n_capture_after_set_kernels_xla_launches_no_k2(cuda):
+    """set_kernels("xla") captures the frame again, with the plain
+    filter passes: the captured frame launches K1 twice and no K2."""
+    r = _cube_renderer(cuda)
+    state, _ = r.step_n(r.init_state(), 2)
+    assert r.capture_launches["K2"] == 2
+    r.set_kernels("xla")
+    n_k2 = spatial_cuda.reflection_pass.launches
+    loop, f_loop = state, None
+    for _ in range(2):
+        loop, f_loop, _ = r.step(loop)
+    chunk = r.step_n(state, 2)
+    assert r.capture_launches["K2"] == 0 and r.capture_launches["K1"] == 2
+    assert spatial_cuda.reflection_pass.launches == n_k2
+    _same_frames((loop, f_loop), chunk)
+
+
+def test_async_compute_equals_sync(cuda):
+    """The refit on a second stream renders the same frames as on the
+    frame's own stream, bit for bit."""
+    r = _cube_renderer(cuda, async_compute=True)
+    frames = {}
+    for on in (True, False):
+        r.set_async_compute(on)
+        state = r.init_state()
+        for _ in range(3):
+            state, frame, _ = r.step(state, 1 / 30)
+        frames[on] = (state, frame)
+    _same_frames(frames[True], frames[False])
+
+
+def test_step_n_raises_when_the_capture_fails(cuda):
+    """A frame that reads a tensor back (here a trace_hook) cannot be
+    captured: step_n raises, in a process of its own (a failed capture
+    may leave the context unusable)."""
+    import subprocess
+    import sys
+
+    code = """
+import numpy as np, torch
+from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
+from raytracedggx_tpu_torch.scene import Scene, default_materials, ground_cube
+scene = Scene(meshes=[ground_cube(), ground_cube()],
+              materials=default_materials(),
+              pos_scale=np.array([0.0, 3.0, 0.0, 1.0], np.float32))
+r = Renderer(scene, config=RenderConfig(width=96, height=54))
+r.trace_hook = lambda sw, o, d, t_min, t_max: float(o.sum())
+try:
+    r.step_n(r.init_state(), 2)
+except RuntimeError:
+    print("step_n raised")
+else:
+    print("captured")
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=600)
+    assert "step_n raised" in res.stdout, res.stdout + res.stderr
