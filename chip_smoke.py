@@ -73,7 +73,23 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     at metallic 1 and 0.5, with each one's device busy ms/frame and idle
     share; last, the CLI as a subprocess on the model written to an OBJ
     (its PNG equal to Renderer's frame after the same 8 steps), with
-    --stage-times, and --interactive with a command script.
+    --stage-times, and --interactive with a command script;
+ 8. the port's bench as a user runs it: ``python -m
+    raytracedggx_tpu_torch.bench`` as a subprocess for config 0 and config
+    6 (metallic 0.5, the three-wave frame) at RTGGX_BENCH_FRAMES=30: one
+    JSON line each, the right metric, value > 0, the live-ray count of its
+    note equal to the count of a step's G-buffers in this process, and its
+    launches (counted in the child from 0, over its warm-up step and
+    step_n's warm-up and capture) those of its path; a sentinel fails;
+ 9. the row bands: ShardedRenderer with 4 bands of 180 rows on the card
+    (halo 32) against Renderer at 1280x720 over 3 frames, at metallic 1
+    and after set_metallic to 0.5: the frame within one f16 ulp (5e-4),
+    the history 4 bands of (180, 1280, 4) f16, K1 and K2 (and K3 at 0.5)
+    launched 4x the single-device counts with the counts set to 0 just
+    before and read just after; a starved halo of 1 under fast motion (dt
+    0.5) must differ from the single-device frame; then ms/frame of the
+    step loop at halo 32 and 16 and of the single-device frame, in halves
+    (32, 16, single, single, 16, 32).
 The second-to-last line is a JSON summary of the kernels (launches on
 their path, parity error, kernel / plain times, the bound; K1's, K1s',
 K1f's, K4's and K5's times are of the full primary wave, K2's and K3's of
@@ -132,6 +148,13 @@ LAB_FRAMES = 10
 LOOP_FRAMES = 10
 CLI_FRAMES = 8
 CLI_SCRIPT = "drag 40 0\nup\na\nv\nrun 2\nquit\n"
+# phase 8: the bench's configs and frames; phase 9: the bands, their halo,
+# frames per check and per timing, and the fast-motion step
+BENCH_CONFIGS = (0, 6)
+BENCH_FRAMES = 30
+BANDS, BAND_HALO = 4, 32
+BAND_FRAMES, BAND_TIMED = 3, 20
+FAST_DT, FAST_FRAMES = 0.5, 4
 
 
 def check(ok, msg):
@@ -1231,11 +1254,16 @@ def async_check(r):
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
+        # the tracer can lose the first device record after it starts (the
+        # frame's upload, once on the H100): a marker op on the main
+        # stream goes first, and is left out below
+        torch.cuda._sleep(1)
+        torch.cuda.synchronize()
         r.step(state)
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     ops = [(e.name, e.device_resource_id) for e in prof.events()
-           if e.device_type == cuda]
+           if e.device_type == cuda and "spin_kernel" not in e.name]
     k1 = {sid for name, sid in ops if "trace_instanced_kernel" in name}
     side = [(name, sid) for name, sid in ops if sid not in k1]
     streams = sorted({sid for _, sid in ops}, key=str)
@@ -1339,6 +1367,169 @@ def frame_loop(renderer, per_mesh, dev, card):
     print(f"  phase 7: captures {t1 - t0:.3f} s, async and timing "
           f"{t2 - t1:.3f} s, CLI {time.perf_counter() - t2:.3f} s")
     return timing
+
+
+# ---------------------------------------------------------------- phase 8
+def bench_check(dev, card):
+    """Phase 8: the bench's configs in BENCH_CONFIGS as subprocesses, one
+    after another (each times the card alone).  Returns {config: (record,
+    launches {K1, K2, K3} over its run)}."""
+    import re
+    import shutil
+    import tempfile
+
+    from raytracedggx_tpu_torch.bench import CONFIGS, STANDIN_POS
+    from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
+    from raytracedggx_tpu_torch.engine.renderer import CAPTURE_WARMUP
+    from raytracedggx_tpu_torch.scene import Scene
+    from raytracedggx_tpu_torch.scripts.standin import model_mesh, write_obj
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("RTGGX_BENCH")}
+    env["RTGGX_BENCH_FRAMES"] = str(BENCH_FRAMES)
+    tmp = tempfile.mkdtemp(prefix="rtggx-bench-check-")
+    try:
+        obj = os.path.join(tmp, "model.obj")
+        write_obj(obj, model_mesh())
+        scene = Scene.create(obj, pos_scale=STANDIN_POS)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out = {}
+    for cfg_id in BENCH_CONFIGS:
+        c = CONFIGS[cfg_id]
+        w, h = c["res"] or (W, H)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "raytracedggx_tpu_torch.bench"], cwd=ROOT,
+            env=dict(env, RTGGX_BENCH_CONFIG=str(cfg_id)),
+            capture_output=True, text=True, timeout=900)
+        lines = proc.stdout.strip().splitlines()
+        print(f"  config {cfg_id} ({time.perf_counter() - t0:.3f} s): "
+              + " | ".join(lines))
+        check(proc.returncode == 0 and len(lines) == 1,
+              f"bench config {cfg_id}: exit 0 and one line "
+              f"({proc.stderr.strip()[-300:]})")
+        rec = json.loads(lines[0])
+        metric = (f"mrays_per_s_per_chip_e2e_{w}x{h}"
+                  + (f"_cfg{cfg_id}" if cfg_id else ""))
+        check(set(rec) == {"metric", "value", "unit", "vs_baseline", "note"}
+              and rec["metric"] == metric and rec["unit"] == "Mrays/s",
+              f"bench config {cfg_id}: the keys and metric {metric}")
+        check(rec["value"] > 0, f"bench config {cfg_id}: value "
+              f"{rec['value']} > 0 (not the sentinel)")
+        # the live rays of the first frame, recomputed in this process
+        r = Renderer(scene, config=RenderConfig(width=w, height=h),
+                     device=dev)
+        if c.get("metallic") is not None:
+            for mesh_idx in (0, 1):
+                r.set_metallic(mesh_idx, c["metallic"])
+        _, _, aux = r.step(r.init_state(), 1 / 60)
+        hit = aux["normal"][..., 3] > 0.5
+        metal = aux["rough_metal"][..., 1]
+        rays = w * h + int(hit.sum()) + int((hit & (metal < 1.0)).sum())
+        del r, aux
+        note = rec["note"]
+        got = int(re.search(r"live rays/frame (\d+)", note).group(1))
+        check(got == rays, f"bench config {cfg_id}: live rays {got} = "
+              f"{rays} of a step here")
+        m = re.search(r"launches K1 (\d+) K2 (\d+) K3 (\d+) K4 (\d+) "
+                      r"K5 (\d+) \(captured frame: K1 (\d+) K2 (\d+) K3 "
+                      r"(\d+) K4 (\d+) K5 (\d+)\)", note)
+        check(m is not None, f"bench config {cfg_id}: launches in the note")
+        n = [int(x) for x in m.groups()]
+        total, per = n[:5], n[5:]
+        want = [3, 2, 2, 0, 0] if c.get("metallic") is not None \
+            else [2, 2, 0, 0, 0]
+        frames = 1 + CAPTURE_WARMUP + 1     # warm-up step, warm-up, capture
+        check(per == want and total == [k * frames for k in per],
+              f"bench config {cfg_id}: launches K1-K5 {total} = {frames} x "
+              f"the captured frame's {per}")
+        check(card in note, f"bench config {cfg_id}: the note names {card}")
+        out[cfg_id] = (rec, dict(zip(("K1", "K2", "K3"), total)))
+    return out
+
+
+# ---------------------------------------------------------------- phase 9
+def bands_check(scene, dev, card):
+    """Phase 9: ShardedRenderer with BANDS bands on this card against
+    Renderer.  Returns (launches {K1, K2, K3} of the band frames, ms/frame
+    {halo 32, halo 16, single})."""
+    from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
+    from raytracedggx_tpu_torch.parallel import ShardedRenderer, make_row_mesh
+    from raytracedggx_tpu_torch.scripts.sharded_bench import HALOS, paired
+
+    cfg = RenderConfig(width=W, height=H)
+    mesh = make_row_mesh((dev,) * BANDS)
+    single = Renderer(scene, config=cfg, device=dev)
+    bands = ShardedRenderer(scene, mesh=mesh, halo=BAND_HALO, config=cfg)
+    band = H // BANDS
+    check((bands.band, bands.halo) == (band, BAND_HALO),
+          f"{BANDS} bands of {band} rows, halo {BAND_HALO}")
+    launches = [0, 0, 0]
+    for metallic, want in ((1.0, [2, 0, 0, 0, 2, 0, 0, 0]),
+                           (0.5, [3, 0, 0, 0, 2, 2, 0, 0])):
+        for r in (single, bands):
+            for mesh_idx in (0, 1):
+                r.set_metallic(mesh_idx, metallic)
+        counts = {}
+        for label, r in (("single", single), ("bands", bands)):
+            state = r.init_state()
+            torch.cuda.synchronize()
+            zero_counts()
+            for _ in range(BAND_FRAMES):
+                state, frame, _ = r.step(state)
+            torch.cuda.synchronize()
+            counts[label] = (read_counts(), state, frame)
+        (c1, s1, f1), (c2, s2, f2) = counts["single"], counts["bands"]
+        diff = float((f1 - f2).abs().max())
+        exact = (torch.equal(f1, f2)
+                 and torch.equal(s1.history, torch.cat(s2.history)))
+        print(f"  metallic {metallic:g}: bands against the single-device "
+              f"frame max |diff| {diff:.3e} over {BAND_FRAMES} frames (frame "
+              f"and history bit for bit: {exact}); "
+              f"launches {'/'.join(COUNTED)} single {c1}, bands {c2}")
+        check(f2.shape == (H, W, 3) and diff < 5e-4,
+              f"metallic {metallic:g}: the {BANDS}-band frame within one "
+              f"f16 ulp (5e-4) of Renderer's")
+        check(len(s2.history) == BANDS and all(
+            b.shape == (band, W, 4) and b.dtype == torch.float16
+            and b.device == dev for b in s2.history),
+            f"metallic {metallic:g}: the history is {BANDS} bands of "
+            f"({band}, {W}, 4) f16")
+        check(c1 == [k * BAND_FRAMES for k in want]
+              and c2 == [BANDS * k for k in c1],
+              f"metallic {metallic:g}: the bands launch {BANDS}x the "
+              f"single-device frame's K1/K2/K3 ({want} per frame)")
+        launches = [a + c2[COUNTED.index(k)]
+                    for a, k in zip(launches, ("K1", "K2", "K3"))]
+    for r in (single, bands):
+        for mesh_idx in (0, 1):
+            r.set_metallic(mesh_idx, 1.0)
+    starved = ShardedRenderer(scene, mesh=mesh, halo=1, config=cfg)
+    frames = []
+    for r in (single, starved, bands):
+        state = r.init_state()
+        for _ in range(FAST_FRAMES):
+            state, frame, _ = r.step(state, FAST_DT)
+        frames.append(frame)
+    del starved
+    d1 = float((frames[0] - frames[1]).abs().max())
+    d_good = float((frames[0] - frames[2]).abs().max())
+    print(f"  fast motion (dt {FAST_DT}, {FAST_FRAMES} frames): max |diff| "
+          f"halo 1 {d1:.3e}, halo {BAND_HALO} {d_good:.3e}")
+    check(d1 > 1e-3, "a starved halo of 1 differs from the single-device "
+          "frame under fast motion")
+    renderers = {f"halo {halo}": bands if halo == BAND_HALO else
+                 ShardedRenderer(scene, mesh=mesh, halo=halo, config=cfg)
+                 for halo in HALOS}
+    renderers["single"] = single
+    halves = paired(renderers, BAND_TIMED)
+    print(f"  step loop ms/frame, halves of {BAND_TIMED // 2} frames: "
+          + ", ".join(f"{k} {' / '.join(f'{t:.4f}' for t in v)}"
+                      for k, v in halves.items())
+          + f" ({BANDS} bands on one card; {card})")
+    ms = {k: float(np.mean(v)) for k, v in halves.items()}
+    return dict(zip(("K1", "K2", "K3"), launches)), ms
 
 
 # ---------------------------------------------------------------- main
@@ -1526,6 +1717,12 @@ def main():
     print("== phase 7: frame loop and CLI")
     timing = frame_loop(renderer, per_mesh, dev, card)
 
+    print("== phase 8: the bench")
+    benched = bench_check(dev, card)
+
+    print("== phase 9: row bands")
+    band_launches, band_ms = bands_check(scene, dev, card)
+
     # launches: each kernel's count over its own path's run (K1-K3: "wide")
     meta = [
         ("K1 trace_tiles_instanced", "csrc/traverse.cu",
@@ -1558,10 +1755,25 @@ def main():
         ("K7 trace_tiles_mxu", "csrc/traverse_mxu.cu",
          "raytracedggx_tpu/ops/lab/fused_mxu.py:98", lab_counts[2]),
     ]
-    kernels = [dict(name=name, route="cuda",
-                    source=f"raytracedggx_tpu_torch/{src}", replaces=rep,
-                    launches=n, **res[name.split()[0]], library_ms=None)
-               for name, src, rep, n in meta]
+    # K1-K3 also launch on the bench's configs (phase 8, counted in the
+    # bench's process) and on the bands (phase 9): "launches" is the sum
+    # over the paths, "launches_by_path" each path's count
+    by_path = {k: {"wide": n, **{f"bench config {i}": b[1][k]
+                                 for i, b in benched.items()},
+                   "bands": band_launches[k]}
+               for k, n in (("K1", meta[0][3]), ("K2", meta[4][3]),
+                            ("K3", meta[5][3]))}
+    kernels = []
+    for name, src, rep, n in meta:
+        k = name.split()[0]
+        paths = by_path.get(k)
+        row = dict(name=name, route="cuda",
+                   source=f"raytracedggx_tpu_torch/{src}", replaces=rep,
+                   launches=sum(paths.values()) if paths else n, **res[k],
+                   library_ms=None)
+        if paths:
+            row["launches_by_path"] = paths
+        kernels.append(row)
     print(f"build {build_secs:.3f} s; "
           + "; ".join(f"{k} {v['ms']:.4f} ms/frame, metallic 0.5 "
                       f"{v['ms_metal']:.4f} ms/frame"
@@ -1573,7 +1785,11 @@ def main():
               f"metallic {m:g} eager {np.mean(t['eager']['ms']):.4f}, "
               f"captured {np.mean(t['captured']['ms']):.4f} ms/frame"
               for m, t in timing.items())
-          + f"; {card}")
+          + "; bench: " + "; ".join(
+              f"config {i} {rec['value']} Mrays/s"
+              for i, (rec, _) in benched.items())
+          + "; bands: " + ", ".join(f"{k} {v:.4f}" for k, v in band_ms.items())
+          + f" ms/frame; {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,19 +6,11 @@ counterpart there.  Array code is torch; the three hand-written kernels
 of the default frame path (closest-hit traversal K1, reflection and
 diffuse spatial filter passes K2/K3) are CUDA C++ under ``csrc/``, built
 with nvcc at first use.  Every kernel wrapper falls back to its plain
-torch version only for tensors on the CPU.
+torch version only for tensors on the CPU.  The package's own import
+loads no torch (``bench``'s parent process needs none); ``_precision``
+keeps float32 matmuls off TF32.
 
 This package never imports jax or raytracedggx_tpu.
 """
 
 __version__ = "0.1.0"
-
-import torch as _torch
-
-# Mirror the reference's jax_default_matmul_precision="highest": the
-# camera/instance transforms, unprojection and 4x4 inverses are tiny but
-# precision-critical (TF32 rounding of a world matrix shows up as ~1e-3
-# NDC reprojection error, which breaks motion vectors and TAA lookups).
-_torch.backends.cuda.matmul.allow_tf32 = False
-_torch.backends.cudnn.allow_tf32 = False
-_torch.set_float32_matmul_precision("highest")

@@ -15,6 +15,8 @@ from typing import NamedTuple
 
 import torch
 
+from .. import _precision  # noqa: F401  (float32 matmuls at full precision)
+
 
 class TLAS(NamedTuple):
     worlds: torch.Tensor        # (I, 4, 4) row-vector world matrices

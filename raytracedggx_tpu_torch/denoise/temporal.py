@@ -54,12 +54,14 @@ def _itm(c):
     return ycocg_to_rgb(c * (4.0 / (1.0 - c[..., 0:1])))
 
 
-def _bilinear_clamp_pix(img, x, y):
+def _bilinear_clamp_pix(img, x, y, first_row=0):
     """Bilinear sample (H, W, C) at continuous pixel coords, clamped to
-    the image (one gather of each pixel's packed 2x2 footprint)."""
+    the image (one gather of each pixel's packed 2x2 footprint).
+    first_row: y is in the rows of a larger image whose row first_row is
+    img's first row."""
     h, w, c = img.shape
     x = torch.clamp(x, 0.0, w - 1.0)
-    y = torch.clamp(y, 0.0, h - 1.0)
+    y = torch.clamp(y, float(first_row), float(first_row + h - 1))
     x0 = torch.floor(x)
     y0 = torch.floor(y)
     fx = (x - x0)[..., None]
@@ -68,7 +70,10 @@ def _bilinear_clamp_pix(img, x, y):
     row0 = torch.cat([img, right], dim=-1)                 # [c00 | c10]
     quad = torch.cat([row0, torch.cat([row0[1:], row0[-1:]], dim=0)],
                      dim=-1)                               # + [c01 | c11]
-    idx = (y0.to(torch.int64) * w + x0.to(torch.int64)).reshape(-1)
+    iy = y0.to(torch.int64)
+    if first_row:
+        iy = iy - first_row
+    idx = (iy * w + x0.to(torch.int64)).reshape(-1)
     q = quad.reshape(h * w, 4 * c)[idx].reshape(*x.shape, 4 * c)
     return (q[..., 0:c] * (1 - fx) * (1 - fy)
             + q[..., c:2 * c] * fx * (1 - fy)
@@ -89,13 +94,21 @@ def _velocity_max(velocity):
     return best
 
 
-def temporal_ss(current, history, velocity):
+def temporal_ss(current, history, velocity, full_size=None, row0=0):
     """current/history (H, W, 4), velocity (H, W, 2) in fractions of the
-    viewport (NDC*0.5 units).  Returns the new accumulation (H, W, 4)
-    float32; callers store it at their history dtype (f16, the
-    reference's RGBA16F TemporalSSOut)."""
+    FULL viewport (NDC*0.5 units).  full_size=(W_full, H_full) scales the
+    reprojection and the blur estimate when the arrays are a row band of a
+    larger image (parallel/sharded.py); it defaults to the arrays' shape.
+    row0: the band's first row in the image.  A band reprojects and
+    takes its bilinear weights in the image's row coordinates (clamped to
+    the image, then to the band): the same float32 rounding as the whole
+    image's, where the reference's band-local rows round ``y - v * H`` at
+    another magnitude and move the bilinear weights.
+    Returns the new accumulation (H, W, 4) float32; callers store it at
+    their history dtype (f16, the reference's RGBA16F TemporalSSOut)."""
     history = history.to(torch.float32)
     h, w = current.shape[0], current.shape[1]
+    fw, fh = full_size if full_size is not None else (w, h)
     dev = current.device
     ys, xs = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
                             torch.arange(w, dtype=torch.float32, device=dev),
@@ -103,12 +116,14 @@ def temporal_ss(current, history, velocity):
 
     vel = _velocity_max(velocity)
     # history resample at uv - velocity, coordinate clamped first
-    qx = torch.clamp(xs - vel[..., 0] * w, 0.0, w - 1.0)
-    qy = torch.clamp(ys - vel[..., 1] * h, 0.0, h - 1.0)
-    hist = _bilinear_clamp_pix(history, qx, qy)
+    qx = torch.clamp(xs - vel[..., 0] * fw, 0.0, w - 1.0)
+    if row0:
+        ys = ys + float(row0)
+    qy = torch.clamp(ys - vel[..., 1] * fh, 0.0, fh - 1.0)
+    hist = _bilinear_clamp_pix(history, qx, qy, row0)
 
     # speed -> blur estimate (:276-283)
-    blurs = torch.abs(vel) * const((4.0 * w, 4.0 * h), vel)
+    blurs = torch.abs(vel) * const((4.0 * fw, 4.0 * fh), vel)
     cur_history_blur = blurs[..., 0] + blurs[..., 1]
     history_blur = torch.maximum(1.0 - hist[..., 3], cur_history_blur)
     hist_count = hist[..., 3] * HISTORY_MAX + 1.0

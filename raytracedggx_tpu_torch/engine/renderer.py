@@ -55,9 +55,11 @@ reference's off-by-default knobs keep its names and defaults:
 (an anchor cut of that many boxes per mesh, whose per-ray id joins the
 bounce sort key) act on "wide" only and raise ValueError on any other
 traversal; ``sort_dir_bits`` (3 or 6) and the ``dbg_*`` ablations go to
-``ray_trace_pass``.  Not ported yet: the sharded ``valid`` mask.  The
-reference's VMEM-budget fallback from "wide" to per-mesh launches is a
-TPU residency limit and is dropped.
+``ray_trace_pass``.  The row-band renderer (parallel/sharded.py) runs
+this frame per band through the hooks ``_trace(row0=, band_height=)``
+and ``_post_process(valid=, full_size=, row0=)``.  The reference's
+VMEM-budget fallback from "wide" to per-mesh launches is a TPU residency
+limit and is dropped.
 """
 
 from __future__ import annotations
@@ -70,6 +72,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import _precision  # noqa: F401  (float32 matmuls at full precision)
 from ..bvh import build_tlas
 from ..denoise import (diffuse_spatial_filter, reflection_spatial_filter,
                        temporal_ss)
@@ -385,12 +388,16 @@ class Renderer:
             sw = refit_scene_wide(self.swide, consts.worlds, inv_mats)
         return tlas, sw
 
-    def _trace(self, consts, tlas, sw, diffuse: bool):
-        """The frame's three waves (``ray_trace_pass``)."""
+    def _trace(self, consts, tlas, sw, diffuse: bool, row0: int = 0,
+               band_height: int | None = None, ray_order=None):
+        """The frame's three waves (``ray_trace_pass``); row0 /
+        band_height and its screen-block ray_order for a row band."""
         cfg = self.config
         return ray_trace_pass(tlas, consts, self.materials, self.env,
                               self.sh_coeffs, cfg.width, cfg.height,
-                              ray_order=self.ray_order,
+                              ray_order=(self.ray_order if ray_order is None
+                                         else ray_order),
+                              row0=row0, band_height=band_height,
                               bary_mode=cfg.bary_mode, geom=self.geom,
                               sort_secondary=(cfg.sort_secondary
                                               and self.traversal != "jax"),
@@ -409,8 +416,14 @@ class Renderer:
         accum, frame = self._post_process(out, history, filt)
         return accum, frame, out
 
-    def _post_process(self, out, history, filter_diffuse=True):
-        """Denoise + accumulate + tone map.  Returns (accum, frame)."""
+    def _post_process(self, out, history, filter_diffuse=True, valid=None,
+                      full_size=None, row0=0):
+        """Denoise + accumulate + tone map.  Returns (accum, frame).
+        valid: an optional (H, 1, 1) row mask of a row band, 0 on rows
+        outside the image, which then read as zeros (the reference's OOB
+        loads) to the filters and the tone map; full_size: the image's
+        (W, H) and row0 the band's first image row, for the TAA
+        reprojection of a band (``temporal_ss``)."""
         cfg = self.config
         refl, diff = out["refl"], out["diff"]
         normal, depth = out["normal"], out["depth"]
@@ -422,6 +435,10 @@ class Renderer:
                                 quantize_unorm(normal[..., 3:4], 2)], dim=-1)
             rough_metal = quantize_unorm(rough_metal, 8)
             velocity = quantize_f16(velocity)
+        if valid is not None:
+            refl, diff = refl * valid, diff * valid
+            normal, rough_metal = normal * valid, rough_metal * valid
+            velocity, depth = velocity * valid, depth * valid[..., 0]
         rough = rough_metal[..., 0].contiguous()
         metal = rough_metal[..., 1].contiguous()
         if cfg.spatial:
@@ -444,10 +461,12 @@ class Renderer:
             flt_dff = torch.cat([comp, hit], dim=-1)
         if cfg.emulate_formats:
             flt_dff = quantize_f16(flt_dff)
-        accum = (temporal_ss(flt_dff, history, velocity)
+        accum = (temporal_ss(flt_dff, history, velocity, full_size, row0)
                  if cfg.temporal else flt_dff)
         if cfg.emulate_formats:
             accum = quantize_f16(accum)
+        if valid is not None:
+            accum = accum * valid
         # stored at the history dtype (f16); the tone map reads the same
         # stored values
         accum = accum.to(history.dtype)

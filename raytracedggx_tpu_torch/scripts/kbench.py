@@ -57,6 +57,8 @@ import time
 import numpy as np
 import torch
 
+from .. import _precision  # noqa: F401  (float32 matmuls at full precision)
+
 T_MAX = 10000.0
 # t_min of the reflection set.  Its rays leave the surface they start on,
 # and whether a test finds that surface again at t ~ 0 is a coin flip of

@@ -11,6 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import _precision  # noqa: F401  (float32 matmuls at full precision)
+
+
 SH_NUM_COEFF = 9
 
 

@@ -1,7 +1,8 @@
 """GGX BRDF terms (BRDFModels.hlsli:1-77).
 
-Torch port of the terms of raytracedggx_tpu/trace/brdf.py that the frame
-uses: F_Schlick, Vis_Smith and EnvBRDFApprox.
+Torch port of raytracedggx_tpu/trace/brdf.py.  The frame uses F_Schlick,
+Vis_Smith and EnvBRDFApprox; D_GGX, Vis_Schlick and Vis_SmithJointApprox
+are kept for parity with the reference's set of terms.
 """
 
 from __future__ import annotations
@@ -15,12 +16,33 @@ from ..utils.math3d import const
 PI = math.pi
 
 
+def d_ggx(roughness, noh):
+    m = roughness * roughness
+    m2 = m * m
+    d = (noh * m2 - noh) * noh + 1.0
+    return m2 / (PI * d * d)
+
+
+def vis_schlick(roughness, nov, nol):
+    k = roughness * roughness * 0.5
+    vv = nov * (1.0 - k) + k
+    vl = nol * (1.0 - k) + k
+    return 0.25 / (vv * vl)
+
+
 def vis_smith(roughness, nov, nol):
     a = roughness * roughness
     a2 = a * a
     vv = nov + torch.sqrt(nov * (nov - nov * a2) + a2)
     vl = nol + torch.sqrt(nol * (nol - nol * a2) + a2)
     return 1.0 / (vv * vl)
+
+
+def vis_smith_joint_approx(roughness, nov, nol):
+    a = roughness * roughness
+    vv = nol * (nov * (1.0 - a) + a)
+    vl = nov * (nol * (1.0 - a) + a)
+    return 0.5 / (vv + vl)
 
 
 def f_schlick(f0, voh):

@@ -252,13 +252,20 @@ def _shade_secondary(consts, mats, env, sh_coeffs, rec, ray_dir,
     return torch.where((metal > 0.5)[..., None], spec, diff), env_tap
 
 
-def primary_rays(consts: FrameConstants, width: int, height: int):
+def primary_rays(consts: FrameConstants, width: int, height: int,
+                 row0: int = 0, band_height: int | None = None):
     """Jittered camera rays from the near plane (z_ndc = 0), so near-clip
-    behaviour matches the raster pass.  Returns (ndc, p_near, ray_d)."""
+    behaviour matches the raster pass.  Returns (ndc, p_near, ray_d).
+    row0 / band_height: only image rows [row0, row0 + band_height) of the
+    width x height viewport (a row band of the sharded renderer; rows
+    outside the image are cast all the same)."""
     dev = consts.eye.device
+    band_height = height if band_height is None else band_height
     xs = (torch.arange(width, dtype=torch.float32, device=dev) + 0.5) \
         / width * 2.0 - 1.0
-    rows = torch.arange(height, dtype=torch.float32, device=dev)
+    rows = torch.arange(band_height, dtype=torch.float32, device=dev)
+    if row0:
+        rows = rows + float(row0)
     ys = -((rows + 0.5) / height * 2.0 - 1.0)
     sy, sx = torch.meshgrid(ys, xs, indexing="ij")
     ndc = torch.stack([sx.reshape(-1), sy.reshape(-1)], dim=-1)
@@ -302,11 +309,12 @@ def calc_barycentrics(p, ndc):
 def primary_surface(consts: FrameConstants, mats: MaterialsDev, width: int,
                     height: int, trace_fused=None, ray_order=None,
                     bary_mode: str = "direct", trace_fn=None, geom=None,
-                    tlas=None):
+                    tlas=None, row0: int = 0, band_height: int | None = None):
     """Primary cast replacing the visibility raster + getPrimarySurface
     (RayTracing.hlsl:277-333).  Returns a dict of flat (R,) / (R, C)
-    tensors."""
-    ndc, p_near, ray_d = primary_rays(consts, width, height)
+    tensors.  row0 / band_height: ``primary_rays``."""
+    ndc, p_near, ray_d = primary_rays(consts, width, height, row0,
+                                      band_height)
     if trace_fused is not None and bary_mode == "direct":
         # K1 returns interpolated OBJECT-space normals; the hit point is
         # on the ray, its object position from the inverse world
@@ -368,10 +376,15 @@ def primary_surface(consts: FrameConstants, mats: MaterialsDev, width: int,
                 rough=rough, metal=metal, velocity=velocity, depth=depth)
 
 
-def pixel_samples(width, height, frame_index, device):
-    """(R, 2) per-pixel sample parameters of a frame (getSampleParam)."""
+def pixel_samples(width, height, frame_index, device, row0: int = 0):
+    """(R, 2) per-pixel sample parameters of a frame (getSampleParam) for
+    ``height`` rows from image row ``row0``: the RNG is keyed on global
+    pixel ids, so a row band draws the full image's samples."""
     idx = torch.arange(width * height, device=device)
-    return sample_param(idx % width, idx // width, width, frame_index)
+    py = idx // width
+    if row0:
+        py = py + row0
+    return sample_param(idx % width, py, width, frame_index)
 
 
 def reflection_rays(surf, xi):
@@ -394,10 +407,14 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
                    sort_secondary: bool = True, sort_dir_bits: int = 3,
                    anchor_fn=None, anchor_bits: int = 0,
                    dbg_no_refl_trace=False, dbg_no_secondary_shade=False,
-                   dbg_env_mode="full", dbg_miss_lod=0.0, diffuse=None):
+                   dbg_env_mode="full", dbg_miss_lod=0.0, diffuse=None,
+                   row0: int = 0, band_height: int | None = None):
     """Full DispatchRays equivalent.  Returns a dict of (H, W, C) images:
     refl, diff (radiance), normal (xyz*0.5+0.5 + hit alpha), rough_metal,
-    velocity, depth, vis (int64).
+    velocity, depth, vis (int64).  row0 / band_height: only image rows
+    [row0, row0 + band_height) of the width x height viewport, so H is
+    band_height (the sharded renderer's bands; the RNG stays keyed on
+    global pixel ids, so bands tile the full pass's rows).
 
     trace_fused (K1) or trace_fn(tlas, o, d, t_min, t_max) -> HitRecord;
     with neither, the plain wavefront traversal over geom's LBVHs.
@@ -414,14 +431,16 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
         raise ValueError(f"dbg_env_mode={dbg_env_mode!r}")
     if trace_fn is None and trace_fused is None:
         trace_fn = default_tracer(geom)
+    band_height = height if band_height is None else band_height
     surf = primary_surface(consts, mats, width, height, trace_fused,
-                           ray_order, bary_mode, trace_fn, geom, tlas)
+                           ray_order, bary_mode, trace_fn, geom, tlas,
+                           row0, band_height)
     hit = surf["hit"]
     n, v, p = surf["n"], surf["v"], surf["p"]
     rough, metal, color = surf["rough"], surf["metal"], surf["color"]
     dev = n.device
 
-    xi = pixel_samples(width, height, consts.frame_index, dev)
+    xi = pixel_samples(width, band_height, consts.frame_index, dev, row0)
     lo = tlas.aabb_min.amin(dim=0)
     hi = tlas.aabb_max.amax(dim=0)
 
@@ -519,7 +538,7 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
     # metallic >= 1 pixels never get a diffuse ray (raygenMain:559)
     diff = torch.where((metal < 1.0)[..., None], diff, 0.0)
 
-    hw = (height, width)
+    hw = (band_height, width)
     return dict(
         refl=refl.reshape(hw + (3,)),
         diff=diff.reshape(hw + (3,)),

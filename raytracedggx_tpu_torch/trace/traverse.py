@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import _precision  # noqa: F401  (float32 matmuls at full precision)
 from ..bvh.lbvh import LBVH
 from .intersect import moller_trumbore, ray_aabb, safe_inv_dir
 

@@ -11,6 +11,8 @@ import functools
 
 import torch
 
+from .. import _precision  # noqa: F401  (float32 matmuls at full precision)
+
 
 def _f32(x):
     return torch.as_tensor(x, dtype=torch.float32)

@@ -110,7 +110,16 @@ def test_direction_sampling_and_brdf_match(rng):
                           jnp.asarray(nol))),
             (tb.env_brdf_approx(_t(f0), _t(rough), _t(nov)),
              jb.env_brdf_approx(jnp.asarray(f0), jnp.asarray(rough),
-                                jnp.asarray(nov)))):
+                                jnp.asarray(nov))),
+            (tb.d_ggx(_t(rough), _t(voh)),
+             jb.d_ggx(jnp.asarray(rough), jnp.asarray(voh))),
+            (tb.vis_schlick(_t(rough), _t(nov), _t(nol)),
+             jb.vis_schlick(jnp.asarray(rough), jnp.asarray(nov),
+                            jnp.asarray(nol))),
+            (tb.vis_smith_joint_approx(_t(rough), _t(nov), _t(nol)),
+             jb.vis_smith_joint_approx(jnp.asarray(rough),
+                                       jnp.asarray(nov),
+                                       jnp.asarray(nol)))):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                    rtol=1e-6)
 
