@@ -82,7 +82,8 @@ def parse_args(argv=None):
     p.add_argument("--log", default=None, metavar="JSONL",
                    help="append per-frame wall-time metrics to a JSONL file")
     p.add_argument("--stage-times", action="store_true",
-                   help="print per-stage times (GPU-timestamp analog)")
+                   help="print each stage's ms per frame, read from the "
+                   "frame's stage marks (GPU-timestamp analog)")
     return p.parse_args(argv)
 
 
@@ -119,6 +120,16 @@ def _sync(r):
         import torch
 
         torch.cuda.synchronize(r.device)
+
+
+def print_stage_times(stage_ms: dict, device):
+    """One line per stage of the frame: its ms per frame between its
+    stage mark and the next (device time on a card, host time on the
+    CPU)."""
+    clock = "device" if device.type == "cuda" else "host"
+    print(f"stage times, ms per frame ({clock} clock, stage marks):")
+    for stage, ms in stage_ms.items():
+        print(f"{stage}_ms: {ms:.3f}")
 
 
 def interactive_loop(r, state, args, scene, mesh_file, stream=None):
@@ -271,16 +282,11 @@ def main(argv=None):
             print(f"wrote {args.out} (interactive session)")
         return
 
-    if args.stage_times:
-        from .profiler import time_stages
-        for k, v in time_stages(r, state).items():
-            print(f"{k}: {v:.1f}")
-
-    profile_ctx = None
-    if args.profile:
+    profile_ctx = run = None
+    if args.profile or args.stage_times:
         from .profiler import trace_frames
         profile_ctx = trace_frames(args.profile)
-        profile_ctx.__enter__()
+        run = profile_ctx.__enter__()
 
     log_f = open(args.log, "a") if args.log else None
 
@@ -304,7 +310,12 @@ def main(argv=None):
     _sync(r)
     if profile_ctx is not None:
         profile_ctx.__exit__(None, None, None)
-        print(f"profiler trace in {args.profile}")
+        if args.profile:
+            print(f"profiler trace in {args.profile}")
+    if args.stage_times:
+        from . import spans
+        print_stage_times(spans.stage_ms(spans.mark_events(run.events)),
+                          r.device)
     write_png(args.out, _image(frame))
     print(f"wrote {args.out} ({args.frames} frames, "
           f"{cfg.width}x{cfg.height})")

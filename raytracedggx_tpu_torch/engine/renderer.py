@@ -64,6 +64,7 @@ limit and is dropped.
 
 from __future__ import annotations
 
+import functools
 import math
 from collections import deque
 from dataclasses import dataclass, replace
@@ -93,6 +94,7 @@ from ..trace.raygen import (FrameConstants, MaterialsDev, default_tracer,
                             ray_trace_pass)
 from ..utils.formats import quantize_f16, quantize_r11g11b10, quantize_unorm
 from ..utils.halton import halton_table
+from . import spans
 
 ANIM_SPEED = 16.0 * math.pi / 180.0   # 16 deg/s (RayTracer.cpp:271)
 JITTER_TABLE = 1024
@@ -205,7 +207,8 @@ class _Staging:
         self.next = (self.next + 1) % len(self.slots)
         buf, event = slot
         if event is not None:
-            event.synchronize()
+            with spans.span("staging.wait"):
+                event.synchronize()
         if buf is None or buf.shape[0] < n:
             buf = slot[0] = torch.empty((n, self.nbytes), dtype=torch.uint8,
                                         pin_memory=True)
@@ -266,8 +269,10 @@ class Renderer:
         self.env = env if env is not None else procedural_env(64, dev)
         self.geom = upload_scene(scene, dev, traversal=self.traversal,
                                  leaf_size=cfg.leaf_size)
-        self.swide, self._anchor_bits = None, 0
+        self.swide, self._anchor_bits, self._k1_stats = None, 0, None
         if self.traversal == "wide":
+            # K1's counters, made before any frame is captured
+            self._k1_stats = spans.k1_stats(dev)
             self.swide = build_scene_wide(self.geom, scene.mesh_ids,
                                           leaf_size=cfg.wide_leaf_size,
                                           device=dev,
@@ -381,6 +386,7 @@ class Renderer:
     def _refit(self, consts: FrameConstants, inv_mats):
         """The compute-queue work of a frame (RayTracer::
         UpdateAccelerationStructure): (TLAS, refitted scene BVH or None)."""
+        spans.mark("refit", self.device)
         tlas = build_tlas(self.geom.bounds, consts.worlds,
                           self.scene.mesh_ids, inv_worlds=consts.inv_worlds)
         sw = None
@@ -407,7 +413,10 @@ class Renderer:
                                   cfg.dbg_no_secondary_shade),
                               dbg_env_mode=cfg.dbg_env_mode,
                               dbg_miss_lod=cfg.dbg_miss_lod,
-                              diffuse=diffuse, **self._tracer(sw))
+                              diffuse=diffuse,
+                              mark=functools.partial(spans.mark,
+                                                     device=self.device),
+                              **self._tracer(sw))
 
     def _render(self, consts, tlas, sw, history):
         """Trace, denoise, accumulate, tone map: (accum, frame, out)."""
@@ -424,6 +433,7 @@ class Renderer:
         loads) to the filters and the tone map; full_size: the image's
         (W, H) and row0 the band's first image row, for the TAA
         reprojection of a band (``temporal_ss``)."""
+        spans.mark("spatial", self.device)
         cfg = self.config
         refl, diff = out["refl"], out["diff"]
         normal, depth = out["normal"], out["depth"]
@@ -461,6 +471,7 @@ class Renderer:
             flt_dff = torch.cat([comp, hit], dim=-1)
         if cfg.emulate_formats:
             flt_dff = quantize_f16(flt_dff)
+        spans.mark("taa", self.device)
         accum = (temporal_ss(flt_dff, history, velocity, full_size, row0)
                  if cfg.temporal else flt_dff)
         if cfg.emulate_formats:
@@ -470,21 +481,27 @@ class Renderer:
         # stored at the history dtype (f16); the tone map reads the same
         # stored values
         accum = accum.to(history.dtype)
-        return accum, tone_map(accum.to(torch.float32))
+        spans.mark("tonemap", self.device)
+        frame = tone_map(accum.to(torch.float32))
+        spans.mark("end", self.device)
+        return accum, frame
 
     def _tracer(self, sw):
         """The frame's traversal: trace_fused (K1, or K1s with trace_slim,
         over the refitted scene BVH sw, with the anchor ids of
         sort_anchor) or trace_fn (per-mesh, in each instance's object
-        space)."""
+        space).  The fused trace numbers its calls, the frame's waves in
+        order, and adds each wave's K1 work to its row of ``spans``'
+        counters."""
         if self.traversal == "wide":
             hook, slim = self.trace_hook, self.config.trace_slim
+            rows = iter(self._k1_stats)
 
             def trace(o, d, t_min, t_max):
                 if hook is not None:
                     hook(sw, o, d, t_min, t_max)
                 return trace_scene_wide_fused(sw, o, d, t_min, t_max,
-                                              slim=slim)
+                                              slim=slim, stats=next(rows))
             out = dict(trace_fused=trace)
             if self._anchor_bits:
                 out.update(anchor_fn=lambda o, d: anchor_ids_scene(sw, o, d),
@@ -501,6 +518,7 @@ class Renderer:
 
     # -- the host loop -------------------------------------------------
 
+    @spans.spanned("step")
     def step(self, state: RenderState, dt: float = 1 / 60, cam=None):
         """One frame: returns (new_state, frame (H, W, 3), aux dict).  On
         the kernel traversals it makes no host sync: the returned tensors
@@ -532,6 +550,7 @@ class Renderer:
             tlas, sw = self._refit(consts, inv_mats)
         consts.world_view_projs_prev.copy_(state.prev_wvp)
         accum, frame, out = self._render(consts, tlas, sw, state.history)
+        spans.count_frames()
         new_state = RenderState(history=accum,
                                 prev_wvp=consts.world_view_projs,
                                 angle=angle, frame=state.frame + 1)
@@ -559,10 +578,12 @@ class Renderer:
         self._static_hist.copy_(accum)
         return frame
 
+    @spans.spanned("capture")
     def _capture(self, key, row0, history):
         """Warm the frame up on a side stream, then capture one frame into
         a CUDA graph over the static buffers.  Raises if the capture
-        fails; nothing falls back to the eager loop."""
+        fails; nothing falls back to the eager loop.  The warm-up frames
+        count as frames run (``spans.count_frames``), the capture not."""
         self._graph = None
         dev = self.device
         self._static = row0.clone()
@@ -573,6 +594,7 @@ class Renderer:
         with torch.cuda.stream(side):
             for _ in range(CAPTURE_WARMUP):
                 self._captured_frame()
+                spans.count_frames()
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         before = launch_counts()
@@ -582,6 +604,7 @@ class Renderer:
                                  for k, n in launch_counts().items()}
         self._graph = (key, graph, frame)
 
+    @spans.spanned("step_n")
     def step_n(self, state: RenderState, num_frames: int,
                dt: float = 1 / 60):
         """num_frames frames; returns (state, last_frame).  Where
@@ -608,22 +631,29 @@ class Renderer:
         for _ in frames:
             angle = self._advance(angle, dt)
             angles.append(angle)
-        rows = self._staging.upload(*self._stage(frames, angles))
-        self._layout.views(rows[0])["world_view_projs_prev"].copy_(
-            state.prev_wvp)
+        with spans.span("step_n.stage"):
+            staged = self._stage(frames, angles)
+        with spans.span("step_n.upload"):
+            rows = self._staging.upload(*staged)
+            self._layout.views(rows[0])["world_view_projs_prev"].copy_(
+                state.prev_wvp)
         key = self._graph_key(state)
         if self._graph is None or self._graph[0] != key:
             self._capture(key, rows[0], state.history)
         _, graph, frame = self._graph
         self._static_hist.copy_(state.history)
         for i in range(num_frames):
-            self._static.copy_(rows[i])
-            graph.replay()
-        new_state = RenderState(
-            history=self._static_hist.clone(),
-            prev_wvp=self._layout.views(rows[-1])["world_view_projs"],
-            angle=angles[-1], frame=state.frame + num_frames)
-        return new_state, frame.clone()
+            with spans.span("step_n.replay"):
+                self._static.copy_(rows[i])
+                graph.replay()
+            spans.count_frames()
+        with spans.span("step_n.clone"):
+            new_state = RenderState(
+                history=self._static_hist.clone(),
+                prev_wvp=self._layout.views(rows[-1])["world_view_projs"],
+                angle=angles[-1], frame=state.frame + num_frames)
+            frame = frame.clone()
+        return new_state, frame
 
     def set_kernels(self, kernels: str):
         """The reference's 'V' hotkey (RayTracedGGX.cpp:391-393): switch

@@ -36,9 +36,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 SIGNATURES = {
     # K1: nodes tris inv_mats attrs4 ray_o ray_d t_max t_min n_rays L stack
-    # mode out_t out_u out_v out_n out_id out_inst stats stream
+    # mode out_t out_u out_v out_n out_id out_inst stats stat_slots stream
     "rtggx_trace_instanced": (_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
-                              _I, _P, _P, _P, _P, _P, _P, _P, _P),
+                              _I, _P, _P, _P, _P, _P, _P, _P, _I, _P),
     # K1e: tris4 inv_mats ray_o ray_d slot inst n_rays out_u out_v stream
     "rtggx_slim_uv": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P),
     # K2: axis src normal rough depth gauss_table n_br out H W width br_max
@@ -65,6 +65,8 @@ SIGNATURES = {
     # out_t out_u out_v out_slot out_inst totals stream
     "rtggx_trace_mxu": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P),
+    # stage mark (engine/spans.py): stage stream
+    "rtggx_mark": (_I, _P),
     "rtggx_k1_max_stack": (),
     "rtggx_k4_max_stack": (),
     "rtggx_k5_max_stack": (),

@@ -267,8 +267,10 @@ def trace_tiles_instanced(nodes, tris4, inv_mats, inst_slots, ray_o, ray_d,
     slim requires lean.  Returns
     the mode's outputs (module docstring).  CUDA tensors launch the kernel
     (or raise); CPU tensors take ``trace_instanced_plain`` on the (S, 9)
-    slots.  stats: optional (2,) int64 tensor the kernel adds its box and
-    triangle tests to.  Launches count per mode: ``launches`` (lean),
+    slots, which leaves stats untouched.  stats: optional (2,) or (n, 2)
+    int64 tensor the kernel adds its box and triangle tests to, block b
+    to row b % n (n rows spread the warps' atomics; the caller sums
+    them).  Launches count per mode: ``launches`` (lean),
     ``launches_slim``, ``launches_fat``.
     Launch counters count calls that launch the kernel: a frame
     captured into a CUDA graph (``Renderer.step_n``) counts once, at
@@ -290,6 +292,8 @@ def trace_tiles_instanced(nodes, tris4, inv_mats, inst_slots, ray_o, ray_d,
     if mode == "fat":
         require("attrs4", attrs4, (tris4.shape[0], 12), f32, dev)
         rows.append(("attrs4", attrs4))
+    if stats is not None:
+        require("stats", stats.view(-1, 2), (None, 2), torch.int64, dev)
     for name, t in rows:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: K1 reads float4 rows, need a "
@@ -314,7 +318,8 @@ def trace_tiles_instanced(nodes, tris4, inv_mats, inst_slots, ray_o, ray_d,
         ray_d.data_ptr(), t_max.data_ptr(), float(t_min), R, int(leaf_size),
         int(stack), MODES[mode], out_t.data_ptr(), pointer(out_u),
         pointer(out_v), pointer(out_n), out_id.data_ptr(),
-        out_inst.data_ptr(), pointer(stats), stream_handle(dev))
+        out_inst.data_ptr(), pointer(stats),
+        1 if stats is None else stats.numel() // 2, stream_handle(dev))
     check_launch(err, f"K1 trace_tiles_instanced ({mode})")
     if mode == "slim":
         trace_tiles_instanced.launches_slim += 1

@@ -456,7 +456,7 @@ def anchor_bits(sw: SceneWideBVH) -> int:
 
 
 def trace_scene_wide_fused(sw: SceneWideBVH, ray_o, ray_d, t_min, t_max,
-                           slim: bool = False):
+                           slim: bool = False, stats=None):
     """Closest hit for WORLD-space rays across all instances in one K1
     launch (its plain version for CPU tensors).  Returns (HitRecord,
     normal): normal is the unnormalised OBJECT-space interpolated vertex
@@ -470,10 +470,15 @@ def trace_scene_wide_fused(sw: SceneWideBVH, ray_o, ray_d, t_min, t_max,
     one-hot matmul), in the walk's own arithmetic, so the slim frame's u,
     v equal the lean frame's.  A tree built with lean=False launches K1f,
     which interpolates the normal and takes prim itself; slim needs the
-    lean tree."""
+    lean tree.
+
+    stats: an optional (2,) or (n, 2) int64 tensor to which K1, in every
+    mode, adds its child-box tests and triangle tests
+    (``trace_tiles_instanced``; ``engine.spans``); the plain version on
+    CPU tensors leaves it untouched."""
     o, d = ray_o.contiguous(), ray_d.contiguous()
     args = (sw.nodes, sw.tris4, sw.inv_mats, sw.inst_slots, o, d, t_min,
-            t_max, sw.leaf_size, sw.k1_stack)
+            t_max, sw.leaf_size, sw.k1_stack, stats)
     if not sw.lean:
         if slim:
             raise ValueError("slim requires a lean tree")

@@ -37,6 +37,7 @@ import contextlib
 import numpy as np
 import torch
 
+from ..engine import spans
 from ..engine.renderer import Renderer, RenderState
 from ..ops.ordering import make_block_order
 from ..trace.env import EnvMap
@@ -189,6 +190,7 @@ class ShardedRenderer(Renderer):
         None)."""
         new_state, frames = self._band_step(state, dt)
         frame = torch.cat([f.to(self.device) for f in frames], dim=0)
+        spans.count_frames()
         return new_state, frame, None
 
     @property

@@ -408,7 +408,8 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
                    anchor_fn=None, anchor_bits: int = 0,
                    dbg_no_refl_trace=False, dbg_no_secondary_shade=False,
                    dbg_env_mode="full", dbg_miss_lod=0.0, diffuse=None,
-                   row0: int = 0, band_height: int | None = None):
+                   row0: int = 0, band_height: int | None = None,
+                   mark=None):
     """Full DispatchRays equivalent.  Returns a dict of (H, W, C) images:
     refl, diff (radiance), normal (xyz*0.5+0.5 + hit alpha), rough_metal,
     velocity, depth, vis (int64).  row0 / band_height: only image rows
@@ -424,14 +425,20 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
     anchor_bits when both are given.  dbg_*: the module docstring.
     diffuse: run the diffuse wave (the host's gate, module docstring);
     None decides it from ``mats.rough_metals``, a read of the device
-    tensor (the renderer passes its own decision)."""
+    tensor (the renderer passes its own decision).  mark(stage) is called
+    where the "primary", "reflection" and (when it runs) "diffuse" waves
+    begin (``engine.spans.mark``); None marks nothing."""
     if bary_mode not in ("direct", "ndc"):
         raise NotImplementedError(f"bary_mode={bary_mode!r}")
     if dbg_env_mode not in ("full", "no_env", "bilinear"):
         raise ValueError(f"dbg_env_mode={dbg_env_mode!r}")
+    if mark is None:
+        def mark(stage):
+            pass
     if trace_fn is None and trace_fused is None:
         trace_fn = default_tracer(geom)
     band_height = height if band_height is None else band_height
+    mark("primary")
     surf = primary_surface(consts, mats, width, height, trace_fused,
                            ray_order, bary_mode, trace_fn, geom, tlas,
                            row0, band_height)
@@ -439,6 +446,7 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
     n, v, p = surf["n"], surf["v"], surf["p"]
     rough, metal, color = surf["rough"], surf["metal"], surf["color"]
     dev = n.device
+    mark("reflection")
 
     xi = pixel_samples(width, band_height, consts.frame_index, dev, row0)
     lo = tlas.aabb_min.amin(dim=0)
@@ -523,6 +531,7 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
         diffuse = bool((mats.rough_metals[:, 1] < 1.0).any())
     tmax_d = torch.where(hit & (metal < 1.0), T_MAX, -1.0)
     if diffuse:
+        mark("diffuse")
         d_dir = cos_dir(n, xi)
         trace_dir_d = torch.where(hit[..., None], d_dir, -v)
         radiance_d, hit_d = wave(trace_dir_d, tmax_d, True)

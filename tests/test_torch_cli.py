@@ -196,17 +196,18 @@ def test_main_end_to_end_matches_reference(mains):
 
 def test_main_outputs(mains, monkeypatch, capsys):
     """--stage-times, --log, --screenshot, --stats and --profile on the
-    CPU: the stage keys of the reference, one log line per frame, a PNG
-    per screenshot, a Chrome trace; then --interactive over stdin."""
+    CPU: a line per stage of the frame, read from its stage marks, one
+    log line per frame, a PNG per screenshot, a Chrome trace; then
+    --interactive over stdin."""
     tmp = mains["tmp"]
     png = str(tmp / "outputs.png")
     cli.main(mains["argv"] + [
         "--out", png, "--stage-times", "--log", str(tmp / "log.jsonl"),
         "--screenshot", "1", "--stats", "--profile", str(tmp / "trace")])
     text = capsys.readouterr().out
-    for key in ("primary_ms", "trace_total_ms", "spatial_ms",
-                "temporal_tonemap_ms"):
-        assert re.search(rf"^{key}: \d+\.\d$", text, re.M), text
+    for stage in ("refit", "primary", "reflection", "spatial", "taa",
+                  "tonemap"):
+        assert re.search(rf"^{stage}_ms: \d+\.\d{{3}}$", text, re.M), text
     lines = (tmp / "log.jsonl").read_text().splitlines()
     assert [json.loads(x)["frame"] for x in lines] == [0, 1]
     assert all(os.path.exists(str(tmp / f"outputs_{i:04d}.png"))
@@ -220,6 +221,27 @@ def test_main_outputs(mains, monkeypatch, capsys):
     text = capsys.readouterr().out
     assert "wrote" in text and "interactive session" in text
     assert len(_flags(text)) == 3
+
+
+@pytest.mark.parametrize("metallic", [None, 0.5])
+def test_stage_times_print_each_stage_from_the_marks(mains, capsys,
+                                                     metallic):
+    """--stage-times alone prints one line per stage that the frames ran,
+    in the frame's order (the diffuse wave's only where its gate is
+    open), timed from the marks' host events on the CPU; without
+    --profile it names no trace."""
+    extra = ["--metallic", "1", str(metallic)] if metallic else []
+    cli.main(mains["argv"] + extra + [
+        "--out", str(mains["tmp"] / "stages.png"), "--stage-times"])
+    text = capsys.readouterr().out
+    assert "host clock" in text and "profiler trace" not in text
+    got = re.findall(r"^(\w+)_ms: (\d+\.\d{3})$", text, re.M)
+    want = ["refit", "primary", "reflection", "diffuse", "spatial", "taa",
+            "tonemap"]
+    if metallic is None:
+        want.remove("diffuse")
+    assert [name for name, _ in got] == want
+    assert all(float(ms) >= 0.0 for _, ms in got)
 
 
 def test_main_needs_a_card_without_warp(mains):
