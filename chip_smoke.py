@@ -8,7 +8,7 @@ Phases (each prints its own lines; any failure ends the run non-zero):
  1. build the CUDA kernels from csrc/ (one nvcc per source, sm_90a) and
     load them; print ptxas's registers, stack frame and spills of every
     kernel, and fail if one of K1's 3 instances (lean, slim K1s, fat K1f),
-    K1e, K4, K5, K7 or an instance of K6a or K6b has a stack frame or
+    K1e, K4, K5, K7 or an instance of K6a, K6b or XF has a stack frame or
     spills;
  2. the scene: ground cube + a deterministic ~82k-triangle displaced
     icosphere standing in for the bunny; its instanced scene BVH (the
@@ -29,7 +29,9 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     and K5 in the model instance's object space on 16,384 rays of the frame
     and on the frame's two full waves (one plain run per wave, compared by
     triangle id), and through their per-instance loop on the nested
-    scene; K2/K3 on 1280x720 G-buffers, both axes;
+    scene; K2/K3 on 1280x720 G-buffers, both axes; XF, the waves'
+    per-instance transforms, in its three forms on 921,600 rays against
+    its plain version (take_small + einsum) and the einsum alone;
  4. the paths at 1280x720, each with every launch count set to 0 just
     before it and read just after: "wide" (3 warm-up, 60 timed frames, then
     10 at metallic 0.5), then "pallas4" and "pallas" (3 warm-up, 20 timed,
@@ -123,7 +125,7 @@ KNOB_TIMED, KNOB_METAL = 20, 5      # the knob paths' frames, per path
 FAT_REPS = 10                       # K1f's API path: passes over both waves
 ANCHOR_FRAMES = 5                   # anchorbench's launches per order
 # the launch counters, in the order of every per-frame list below
-COUNTED = ("K1", "K1s", "K1f", "K1e", "K2", "K3", "K4", "K5")
+COUNTED = ("K1", "K1s", "K1f", "K1e", "K2", "K3", "K4", "K5", "XF")
 F32_EPS = 2.0 ** -23
 K1_RAYS = 16384
 K1_LEAVES = (8, 64)     # the renderer's leaf size (checked), and the old one
@@ -209,7 +211,8 @@ def build_kernels():
                       ("K4", "trace_flat_pairs_kernel", 1),
                       ("K5", "trace_wide4_kernel", 1),
                       ("K6a", "lab_kernel", 6), ("K6b", "ls_kernel", 2),
-                      ("K7", "mxu_kernel", 1)):
+                      ("K7", "mxu_kernel", 1),
+                      ("XF", "instance_xform_kernel", 3)):
         rows = [r for name, r in reports.items() if key in name]
         check(len(rows) == n and all(r[1:] == (0, 0, 0) for r in rows),
               f"{k}: {n} instance(s), no stack frame and no spills")
@@ -643,6 +646,63 @@ def spatial_check(aux_out, width, height):
     return res
 
 
+def xform_check(rng, device, n=W * H, reps=20):
+    """XF against its plain version (take_small + einsum) at the frame's
+    n rays, in each of the waves' three forms, on a 2-row table, ids in
+    [-1, 2) and x as the columns of wider rows (a wave's un-permuted
+    rows): within 2 float32 ulp of the operands' magnitude (tests/
+    test_torch_cuda.py).  Times the kernel, the plain version and the
+    library's share of it (the cuBLAS einsum on the gathered matrices);
+    bound: the ids, x and the output, each once.  Returns the affine
+    (object to world) form's dict(max_abs_err, ms, plain_ms, library_ms,
+    bound_ms, bound_by), the error of all."""
+    from raytracedggx_tpu_torch.ops.xform_cuda import (instance_xform,
+                                                       instance_xform_plain)
+    from raytracedggx_tpu_torch.trace.shade import take_small
+
+    forms = {"to_object": (4, True, None), "normal": (3, False, None),
+             "clip": (4, True, 4)}
+    ids = torch.as_tensor(rng.integers(-1, 2, (n, 2)), device=device)[:, 1]
+    xw = torch.as_tensor(rng.normal(0.0, 5.0, (n, 6)), dtype=torch.float32,
+                         device=device)
+    x = xw[:, 3:6]
+    rows, errs = {}, []
+    for form, (t, affine, cols) in forms.items():
+        table = torch.as_tensor(rng.normal(0.0, 2.0, (2, t, t)),
+                                dtype=torch.float32, device=device)
+        got = instance_xform(table, ids, x, affine, cols)
+        ref = instance_xform_plain(table, ids, x, affine, cols)
+        m = take_small(table, ids)
+        d = got.shape[1]
+        mag = torch.einsum("nc,ncd->nd", x.abs(), m[:, :3, :d].abs())
+        if affine:
+            mag = mag + m[:, 3, :d].abs()
+        err = (got - ref).abs()
+        errs.append(float(err.max()))
+        check(bool((err <= 2.0 * F32_EPS * mag).all()),
+              f"XF {form}: {n} rays within 2 ulp of the operands' magnitude"
+              f" (max |err| {errs[-1]:.3e}, max err / magnitude "
+              f"{float((err / mag.clamp(min=1e-30)).max()):.3e})")
+        ms, plain_ms = time_pair(f"XF {form}",
+                                 lambda: instance_xform(table, ids, x, affine,
+                                                        cols),
+                                 lambda: instance_xform_plain(table, ids, x,
+                                                              affine, cols),
+                                 kern_reps=reps, plain_reps=reps)
+        mats = m[:, :3, :d].contiguous()
+        library_ms = cuda_ms(lambda: torch.einsum("...c,...cd->...d", x,
+                                                  mats), reps)
+        # the ids, x and the output once; at most 4 FMAs an output
+        nbytes = n * (ids.element_size() + 3 * 4 + d * 4)
+        bound_ms, bound_by = bound(nbytes, n * d * 8)
+        print(f"    library (einsum on gathered matrices) {library_ms:.4f} "
+              f"ms; bound {bound_ms:.6f} ms ({bound_by}), kernel at "
+              f"{100 * bound_ms / ms:.1f}% of it")
+        rows[form] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+    return dict(rows["to_object"], max_abs_err=max(errs))
+
+
 # ---------------------------------------------------------------- phase 4
 def zero_counts():
     from raytracedggx_tpu_torch.engine.renderer import launch_counters
@@ -737,14 +797,14 @@ def kernels_switch_check(scene, dev, card, frames=3):
     f = frame.float()
     check(bool(torch.isfinite(f).all()) and float(f.std()) > 1e-3,
           "kernels='xla': frame finite and not constant")
-    want = [2, 0, 0, 0, 0, 0, 0, 0]
+    want = [2, 0, 0, 0, 0, 0, 0, 0, 6]
     check(counts == [n * frames for n in want], f"kernels='xla': launches "
           f"{'/'.join(COUNTED)} {counts} = {want} per frame")
     r.set_kernels("auto")
     zero_counts()
     r.step(state)
     counts = read_counts()
-    want = [2, 0, 0, 0, 2, 0, 0, 0]
+    want = [2, 0, 0, 0, 2, 0, 0, 0, 6]
     check(counts == want, f"set_kernels('auto'): launches "
           f"{'/'.join(COUNTED)} {counts} = {want} in the next frame")
 
@@ -762,13 +822,15 @@ def knob_paths(scene, dev, card, width=W, height=H):
 
     size = dict(width=width, height=height)
     paths = {  # config, launches per frame, and at metallic 0.5
-        "default": (RenderConfig(**size), [2, 0, 0, 0, 2, 0, 0, 0],
-                    [3, 0, 0, 0, 2, 2, 0, 0]),
+        "default": (RenderConfig(**size), [2, 0, 0, 0, 2, 0, 0, 0, 6],
+                    [3, 0, 0, 0, 2, 2, 0, 0, 8]),
         "trace_slim": (RenderConfig(trace_slim=True, **size),
-                       [0, 2, 0, 2, 2, 0, 0, 0], [0, 3, 0, 3, 2, 2, 0, 0]),
+                       [0, 2, 0, 2, 2, 0, 0, 0, 6],
+                       [0, 3, 0, 3, 2, 2, 0, 0, 8]),
         "sort_anchor": (RenderConfig(sort_anchor=32, sort_dir_bits=6,
                                      **size),
-                        [2, 0, 0, 0, 2, 0, 0, 0], [3, 0, 0, 0, 2, 2, 0, 0]),
+                        [2, 0, 0, 0, 2, 0, 0, 0, 6],
+                        [3, 0, 0, 0, 2, 2, 0, 0, 8]),
     }
     rs, states, frames, ms = {}, {}, {}, {}
     launches = {k: [0] * len(COUNTED) for k in paths}
@@ -855,7 +917,7 @@ def fat_path_check(renderer, worlds, waves):
         outs = [trace_scene_wide_fused(sw_f, *w) for w in waves]
     torch.cuda.synchronize()
     counts = read_counts()
-    want = [0, 0, 2 * FAT_REPS, 0, 0, 0, 0, 0]
+    want = [0, 0, 2 * FAT_REPS, 0, 0, 0, 0, 0, 0]
     check(counts == want, f"K1f API path: launches {'/'.join(COUNTED)} "
           f"{counts} = {want} over {FAT_REPS} passes of both waves")
     for label, w, (rec, nrm) in zip(("primary", "reflection"), waves, outs):
@@ -1172,10 +1234,12 @@ def capture_check(r, label, per_frame, per_frame_metal, frames=3,
                 for k in ("K1", "K2", "K3", "K4", "K5")}
         seen["K1e"] = sum(1 for name, _, _ in events
                           if "slim_uv_kernel" in name)
+        seen["XF"] = sum(1 for name, _, _ in events
+                         if "instance_xform_kernel" in name)
         by = dict(zip(COUNTED, got))
         expect = {"K1": by["K1"] + by["K1s"] + by["K1f"], "K1e": by["K1e"],
                   "K2": by["K2"], "K3": by["K3"], "K4": by["K4"],
-                  "K5": by["K5"]}
+                  "K5": by["K5"], "XF": by["XF"]}
         expect = {k: v * replays for k, v in expect.items()}
         print(f"  {label} metallic {metallic:g}: {replays} replays under "
               f"torch.profiler, kernels by name {seen}")
@@ -1348,17 +1412,17 @@ def frame_loop(renderer, per_mesh, dev, card):
     from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
 
     t0 = time.perf_counter()
-    capture_check(renderer, "wide", [2, 0, 0, 0, 2, 0, 0, 0],
-                  [3, 0, 0, 0, 2, 2, 0, 0])
+    capture_check(renderer, "wide", [2, 0, 0, 0, 2, 0, 0, 0, 6],
+                  [3, 0, 0, 0, 2, 2, 0, 0, 8])
     slim = Renderer(renderer.scene, config=RenderConfig(trace_slim=True),
                     device=dev)
-    capture_check(slim, "wide trace_slim", [0, 2, 0, 2, 2, 0, 0, 0],
-                  [0, 3, 0, 3, 2, 2, 0, 0])
+    capture_check(slim, "wide trace_slim", [0, 2, 0, 2, 2, 0, 0, 0, 6],
+                  [0, 3, 0, 3, 2, 2, 0, 0, 8])
     del slim
-    capture_check(per_mesh["pallas4"], "pallas4", [0, 0, 0, 0, 2, 0, 0, 4],
-                  [0, 0, 0, 0, 2, 2, 0, 6])
-    capture_check(per_mesh["pallas"], "pallas", [0, 0, 0, 0, 2, 0, 4, 0],
-                  [0, 0, 0, 0, 2, 2, 6, 0])
+    capture_check(per_mesh["pallas4"], "pallas4", [0, 0, 0, 0, 2, 0, 0, 4, 5],
+                  [0, 0, 0, 0, 2, 2, 0, 6, 6])
+    capture_check(per_mesh["pallas"], "pallas", [0, 0, 0, 0, 2, 0, 4, 0, 5],
+                  [0, 0, 0, 0, 2, 2, 6, 0, 6])
     t1 = time.perf_counter()
     async_check(renderer)
     timing = {m: loop_timing(renderer, card, m) for m in (1.0, 0.5)}
@@ -1466,8 +1530,8 @@ def bands_check(scene, dev, card):
     check((bands.band, bands.halo) == (band, BAND_HALO),
           f"{BANDS} bands of {band} rows, halo {BAND_HALO}")
     launches = [0, 0, 0]
-    for metallic, want in ((1.0, [2, 0, 0, 0, 2, 0, 0, 0]),
-                           (0.5, [3, 0, 0, 0, 2, 2, 0, 0])):
+    for metallic, want in ((1.0, [2, 0, 0, 0, 2, 0, 0, 0, 6]),
+                           (0.5, [3, 0, 0, 0, 2, 2, 0, 0, 8])):
         for r in (single, bands):
             for mesh_idx in (0, 1):
                 r.set_metallic(mesh_idx, metallic)
@@ -1499,7 +1563,8 @@ def bands_check(scene, dev, card):
         check(c1 == [k * BAND_FRAMES for k in want]
               and c2 == [BANDS * k for k in c1],
               f"metallic {metallic:g}: the bands launch {BANDS}x the "
-              f"single-device frame's K1/K2/K3 ({want} per frame)")
+              f"single-device frame's {'/'.join(COUNTED)} ({want} per "
+              f"frame)")
         launches = [a + c2[COUNTED.index(k)]
                     for a, k in zip(launches, ("K1", "K2", "K3"))]
     for r in (single, bands):
@@ -1686,19 +1751,20 @@ def main():
     _, _, aux = rm.step(rm.init_state())
     res.update(spatial_check(aux, W, H))
     del rm, aux
+    res["XF"] = xform_check(rng, dev)
 
     print("== phase 4: paths at 1280x720")
     runs = {"wide": drive_path(renderer, "wide", TIMED_FRAMES, METAL_FRAMES,
-                               [2, 0, 0, 0, 2, 0, 0, 0],
-                               [3, 0, 0, 0, 2, 2, 0, 0], card)}
+                               [2, 0, 0, 0, 2, 0, 0, 0, 6],
+                               [3, 0, 0, 0, 2, 2, 0, 0, 8], card)}
     runs["pallas4"] = drive_path(per_mesh["pallas4"], "pallas4",
                                  PER_MESH_TIMED, PER_MESH_METAL,
-                                 [0, 0, 0, 0, 2, 0, 0, 4],
-                                 [0, 0, 0, 0, 2, 2, 0, 6], card)
+                                 [0, 0, 0, 0, 2, 0, 0, 4, 5],
+                                 [0, 0, 0, 0, 2, 2, 0, 6, 6], card)
     runs["pallas"] = drive_path(per_mesh["pallas"], "pallas",
                                 PER_MESH_TIMED, PER_MESH_METAL,
-                                [0, 0, 0, 0, 2, 0, 4, 0],
-                                [0, 0, 0, 0, 2, 2, 6, 0], card)
+                                [0, 0, 0, 0, 2, 0, 4, 0, 5],
+                                [0, 0, 0, 0, 2, 2, 6, 0, 6], card)
     kernels_switch_check(scene, dev, card)
     knobs = knob_paths(scene, dev, card)
     fat_launches = fat_path_check(renderer, worlds_f, waves)
@@ -1754,6 +1820,9 @@ def main():
          "raytracedggx_tpu/ops/lab/fused_lab.py:471", lab_counts[1]),
         ("K7 trace_tiles_mxu", "csrc/traverse_mxu.cu",
          "raytracedggx_tpu/ops/lab/fused_mxu.py:98", lab_counts[2]),
+        # no Pallas kernel: the take_small one-hot matmuls and einsums
+        ("XF instance_xform", "csrc/xform.cu",
+         "raytracedggx_tpu/trace/raygen.py:313", runs["wide"]["launches"][8]),
     ]
     # K1-K3 also launch on the bench's configs (phase 8, counted in the
     # bench's process) and on the bands (phase 9): "launches" is the sum
@@ -1769,8 +1838,8 @@ def main():
         paths = by_path.get(k)
         row = dict(name=name, route="cuda",
                    source=f"raytracedggx_tpu_torch/{src}", replaces=rep,
-                   launches=sum(paths.values()) if paths else n, **res[k],
-                   library_ms=None)
+                   launches=sum(paths.values()) if paths else n,
+                   **{"library_ms": None, **res[k]})
         if paths:
             row["launches_by_path"] = paths
         kernels.append(row)

@@ -85,6 +85,7 @@ from ..ops.scene_wide import (anchor_bits, anchor_ids_scene,
 from ..ops.spatial_cuda import diffuse_pass, reflection_pass
 from ..ops.traverse_cuda import trace_scene_flat, trace_tiles_flat
 from ..ops.wide import trace_scene4, trace_tiles4
+from ..ops.xform_cuda import instance_xform
 from ..post import tone_map
 from ..scene.camera import Camera
 from ..sh import project_sh9
@@ -229,14 +230,16 @@ class _Staging:
 def launch_counters():
     """(kernel, wrapper, attribute) of each kernel wrapper's launch
     counter: K1's lean, slim (K1s) and fat (K1f) modes, K1s's epilogue
-    K1e, then K2, K3, K4, K5."""
+    K1e, then K2, K3, K4, K5, and XF, the waves' per-instance
+    transforms."""
     k1 = trace_tiles_instanced
     return (("K1", k1, "launches"), ("K1s", k1, "launches_slim"),
             ("K1f", k1, "launches_fat"), ("K1e", slim_uv, "launches"),
             ("K2", reflection_pass, "launches"),
             ("K3", diffuse_pass, "launches"),
             ("K4", trace_tiles_flat, "launches"),
-            ("K5", trace_tiles4, "launches"))
+            ("K5", trace_tiles4, "launches"),
+            ("XF", instance_xform, "launches"))
 
 
 def launch_counts() -> dict:

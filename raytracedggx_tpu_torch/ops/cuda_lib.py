@@ -34,6 +34,7 @@ COMPILE_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 SIGNATURES = {
     # K1: nodes tris inv_mats attrs4 ray_o ray_d t_max t_min n_rays L stack
     # mode out_t out_u out_v out_n out_id out_inst stats stat_slots stream
@@ -65,11 +66,16 @@ SIGNATURES = {
     # out_t out_u out_v out_slot out_inst totals stream
     "rtggx_trace_mxu": (_P, _P, _P, _P, _P, _P, _F, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P),
+    # XF: table rows s_row s_k s_d inst inst_stride inst64 x x_row x_col
+    # c d affine n out stream
+    "rtggx_instance_xform": (_P, _I, _L, _L, _L, _P, _L, _I, _P, _L, _L,
+                             _I, _I, _I, _I, _P, _P),
     # stage mark (engine/spans.py): stage stream
     "rtggx_mark": (_I, _P),
     "rtggx_k1_max_stack": (),
     "rtggx_k4_max_stack": (),
     "rtggx_k5_max_stack": (),
+    "rtggx_xform_max_rows": (),
 }
 
 

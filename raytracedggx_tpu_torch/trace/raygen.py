@@ -22,7 +22,10 @@ Dropped TPU workarounds that change no output:
 - the static bucket prefix with its ``lax.cond`` overflow fallback
   (raygen.py:200-310): the kernels run over the whole sorted wave, and
   dead rays (t_max < 0) return at once;
-- ``take_small``'s one-hot matmul is an index gather (trace/shade.py);
+- ``take_small``'s one-hot matmul is an index gather (trace/shade.py),
+  and a per-ray product by a per-instance matrix is one kernel that
+  never gathers the matrix (``ops.xform_cuda.instance_xform``, XF; on
+  the CPU the gather and ``einsum`` it replaces);
 - the diffuse wave's runtime gate (``lax.cond`` on "any hit pixel with
   metallic < 1", raygen.py:769-777) is decided on the host from the
   materials (``diffuse``): a frame makes no host sync, so it can be
@@ -52,6 +55,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.ordering import BlockOrder, sort_rays_morton
+from ..ops.xform_cuda import instance_xform
 from ..sh import evaluate_sh_irradiance
 from ..utils.math3d import const, reflect, saturate
 from .brdf import PI, env_brdf_approx, f_schlick, vis_smith
@@ -173,9 +177,7 @@ def _trace_shade_ordered_fused(trace_fused, shade_fn, env, o, d, t_min,
 def world_to_object(consts: FrameConstants, inst, p_world):
     """Object-space position of world hit points through the per-instance
     inverse transforms (RayTracing.hlsl:236-244, 308-311)."""
-    iw = take_small(consts.inv_worlds, inst)
-    return (torch.einsum("...c,...cd->...d", p_world, iw[..., :3, :3])
-            + iw[..., 3, :3])
+    return instance_xform(consts.inv_worlds, inst, p_world, affine=True)
 
 
 def _mip_level(env: EnvMap, rough):
@@ -236,8 +238,7 @@ def _shade_secondary(consts, mats, env, sh_coeffs, rec, ray_dir,
     else:
         pos_obj, nrm_obj = interp_attribs(geom, mesh_ids, rec.inst,
                                           rec.prim, rec.u, rec.v)
-    n = _normalize(torch.einsum("...c,...cd->...d", nrm_obj,
-                                take_small(consts.world_its, rec.inst)))
+    n = _normalize(instance_xform(consts.world_its, rec.inst, nrm_obj))
     v = -ray_dir
     uv = get_uv(nrm_obj, pos_obj)
     rough, metal = get_rough_metal(mats.rough_metals, rec.inst, uv)
@@ -338,11 +339,9 @@ def primary_surface(consts: FrameConstants, mats: MaterialsDev, width: int,
         else:
             u, v = rec.u, rec.v
         pos_obj, nrm_obj = interp_from_vertices(vp, vn, u, v)
-        worlds = take_small(consts.worlds, rec.inst)
-        p_world = (torch.einsum("...c,...cd->...d", pos_obj,
-                                worlds[..., :3, :3]) + worlds[..., 3, :3])
-    n = _normalize(torch.einsum("...c,...cd->...d", nrm_obj,
-                                take_small(consts.world_its, rec.inst)))
+        p_world = instance_xform(consts.worlds, rec.inst, pos_obj,
+                                 affine=True)
+    n = _normalize(instance_xform(consts.world_its, rec.inst, nrm_obj))
 
     uv = get_uv(nrm_obj, pos_obj)
     rough, metal = get_rough_metal(mats.rough_metals, rec.inst, uv)
@@ -354,17 +353,15 @@ def primary_surface(consts: FrameConstants, mats: MaterialsDev, width: int,
     v_dir = _normalize(consts.eye - p_world)
 
     # velocity (RayTracing.hlsl:308-311)
-    pos_h = torch.cat([pos_obj, torch.ones_like(pos_obj[..., :1])], dim=-1)
-    prev_clip = torch.einsum("...c,...cd->...d", pos_h,
-                             take_small(consts.world_view_projs_prev,
-                                        rec.inst))
+    prev_clip = instance_xform(consts.world_view_projs_prev, rec.inst,
+                               pos_obj, affine=True, cols=4)
     velocity = ((ndc - prev_clip[..., :2] / prev_clip[..., 3:4])
                 * const((0.5, -0.5), ndc))
     velocity = torch.where(hit3, velocity, 0.0)
 
     # raster-equivalent depth for the denoiser (z_clip / w of the hit)
-    cur_clip = torch.einsum("...c,...cd->...d", pos_h,
-                            take_small(consts.world_view_projs, rec.inst))
+    cur_clip = instance_xform(consts.world_view_projs, rec.inst, pos_obj,
+                              affine=True, cols=4)
     depth = torch.where(rec.hit, cur_clip[..., 2] / cur_clip[..., 3], 1.0)
 
     # visibility ((inst << PRIMITIVE_BITS) | prim) + 1 (PSVisibility:18-24)

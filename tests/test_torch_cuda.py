@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1-K7) against their plain torch versions
-on the card.  Every test here needs an NVIDIA GPU with nvcc and skips
+"""The port's CUDA kernels (K1-K7, XF) against their plain torch
+versions on the card.  Every test here needs an NVIDIA GPU with nvcc and skips
 without one; this file imports neither jax nor the JAX package, so on a
 GPU machine without JAX it runs on its own:
 
@@ -13,7 +13,7 @@ import torch
 from raytracedggx_tpu_torch.bvh import build_lbvh, build_tlas
 from raytracedggx_tpu_torch.denoise import tm
 from raytracedggx_tpu_torch.ops import (flatten, fused, spatial_cuda,
-                                        traverse_cuda, wide)
+                                        traverse_cuda, wide, xform_cuda)
 from raytracedggx_tpu_torch.ops.scene_wide import (build_scene_wide,
                                                    refit_scene_wide)
 from raytracedggx_tpu_torch.scene import Scene, default_materials, ground_cube
@@ -728,20 +728,22 @@ def _same_frames(a, b):
 
 
 @pytest.mark.parametrize("cfg,per_frame", [
-    (dict(traversal="wide"), ("K1", 2, 3)),
-    (dict(traversal="wide", trace_slim=True), ("K1s", 2, 3)),
-    (dict(traversal="pallas4"), ("K5", 4, 6)),
-    (dict(traversal="pallas"), ("K4", 4, 6)),
+    (dict(traversal="wide"), ("K1", 2, 3, 6, 8)),
+    (dict(traversal="wide", trace_slim=True), ("K1s", 2, 3, 6, 8)),
+    (dict(traversal="pallas4"), ("K5", 4, 6, 5, 6)),
+    (dict(traversal="pallas"), ("K4", 4, 6, 5, 6)),
 ])
 def test_step_n_capture_equals_step_loop(cuda, cfg, per_frame):
     """step_n replays one captured frame; its frames and states equal a
     step loop's bit for bit, at metallic 1 and, across a set_metallic
     that opens the gates (a new capture), at 0.5; the captured frame's
-    launches are the path's (K2 twice; K3 twice at metallic 0.5)."""
+    launches are the path's (K2 twice; K3 twice at metallic 0.5; XF four
+    times in the primary wave and in each bounce wave twice on K1's
+    route, once on the per-mesh routes)."""
     r = _cube_renderer(cuda, **cfg)
     assert r.captures
     s_loop = s_chunk = r.init_state()
-    kernel, n1, n05 = per_frame
+    kernel, n1, n05, xf1, xf05 = per_frame
     for n, metallic in ((4, None), (3, 0.5)):
         if metallic is not None:
             r.set_metallic(0, metallic)
@@ -754,6 +756,7 @@ def test_step_n_capture_equals_step_loop(cuda, cfg, per_frame):
         got = r.capture_launches
         assert got[kernel] == want and got["K2"] == 2, got
         assert got["K3"] == (2 if metallic else 0), got
+        assert got["XF"] == (xf05 if metallic else xf1), got
 
 
 def test_step_n_capture_after_set_kernels_xla_launches_no_k2(cuda):
@@ -838,7 +841,7 @@ def _bands_against_renderer(mesh, metallic, cuda):
             torch.cuda.synchronize(dev)
         n1 = launch_counts()
         out.append((state, frame, {k: n1[k] - n0[k]
-                                   for k in ("K1", "K2", "K3")}))
+                                   for k in ("K1", "K2", "K3", "XF")}))
     (_, f1, c1), (s2, f2, c2) = out
     assert f2.shape == (128, 128, 3) and f2.device == cuda
     assert float((f1 - f2).abs().max()) < 5e-4
@@ -846,8 +849,8 @@ def _bands_against_renderer(mesh, metallic, cuda):
         b.shape == (32, 128, 4) and b.dtype == torch.float16
         and b.device == torch.device(d)
         for b, d in zip(s2.history, mesh))
-    want = {"K1": 2, "K2": 2, "K3": 0} if metallic == 1.0 else \
-        {"K1": 3, "K2": 2, "K3": 2}
+    want = {"K1": 2, "K2": 2, "K3": 0, "XF": 6} if metallic == 1.0 else \
+        {"K1": 3, "K2": 2, "K3": 2, "XF": 8}
     assert c1 == {k: 3 * n for k, n in want.items()}
     assert c2 == {k: 4 * n for k, n in c1.items()}
 
@@ -856,8 +859,8 @@ def _bands_against_renderer(mesh, metallic, cuda):
 def test_bands_on_the_card_match_renderer(cuda, metallic):
     """4 row bands of 32 rows on one card (halo 32, the index-order route:
     96 rows) against the single-device frame at 128x128 over 3 frames:
-    within one f16 ulp, the history in 4 f16 bands, and K1 and K2 (K3 at
-    metallic 0.5) launched 4x per frame."""
+    within one f16 ulp, the history in 4 f16 bands, and K1, K2 and XF
+    (K3 at metallic 0.5) launched 4x per frame."""
     _bands_against_renderer((cuda,) * 4, metallic, cuda)
 
 
@@ -871,3 +874,101 @@ def test_bands_across_cards_match_renderer(cuda, metallic):
         pytest.skip("needs two or more CUDA devices")
     _bands_against_renderer(
         tuple(torch.device("cuda", i % n) for i in range(4)), metallic, cuda)
+
+
+# XF: the call forms of trace/raygen.py, as (table rows x cols, affine,
+# output columns)
+XF_FORMS = {"normal": (3, False, None), "to_object": (4, True, None),
+            "clip": (4, True, 4)}
+
+
+def _xf_inputs(rng, rows, form, inst_dtype, strided, device, n=50_000):
+    """A table of ``rows`` random matrices, ids in [-1, rows) (-1 a miss)
+    and 3-vectors; strided: x and inst as the columns of wider rows, as
+    a wave's un-permuted rows hand them over, and the table a transposed
+    view."""
+    t, _, _ = XF_FORMS[form]
+    table = torch.as_tensor(rng.normal(0.0, 2.0, (rows, t, t)),
+                            dtype=torch.float32, device=device)
+    ids = torch.as_tensor(rng.integers(-1, rows, n), dtype=inst_dtype,
+                          device=device)
+    xs = torch.as_tensor(rng.normal(0.0, 5.0, (n, 3)), dtype=torch.float32,
+                         device=device)
+    if strided:
+        table = table.transpose(1, 2).contiguous().transpose(1, 2)
+        ids = torch.stack([torch.zeros_like(ids), ids], dim=-1)[:, 1]
+        xs = torch.cat([torch.zeros_like(xs), xs], dim=-1)[:, 3:6]
+    return table, ids, xs
+
+
+@pytest.mark.parametrize("strided", [False, True])
+@pytest.mark.parametrize("inst_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("rows", [1, 2, 8])
+@pytest.mark.parametrize("form", list(XF_FORMS))
+def test_xform_kernel_matches_plain(cuda, form, rows, inst_dtype, strided):
+    """XF against its plain version (the take_small + einsum it
+    replaced), misses included.  Tolerance: each output within 2 float32
+    ulp (2 * 2**-23) of its operands' magnitude, sum_c |x_c M_cd| (+
+    |M_3d| where affine): each side rounds at most 4 times, by half an ulp
+    of a partial sum no larger than that magnitude, in another order."""
+    from raytracedggx_tpu_torch.trace.shade import take_small
+
+    rng = np.random.default_rng(rows * 10 + len(form))
+    _, affine, cols = XF_FORMS[form]
+    table, ids, xs = _xf_inputs(rng, rows, form, inst_dtype, strided, cuda)
+    n0 = xform_cuda.instance_xform.launches
+    got = xform_cuda.instance_xform(table, ids, xs, affine, cols)
+    ref = xform_cuda.instance_xform_plain(table, ids, xs, affine, cols)
+    torch.cuda.synchronize()
+    assert xform_cuda.instance_xform.launches == n0 + 1
+    assert got.shape == ref.shape == (xs.shape[0], cols or 3)
+    assert got.is_contiguous() and got.dtype == torch.float32
+    m = take_small(table, ids).double().abs()
+    d = got.shape[1]
+    mag = torch.einsum("nc,ncd->nd", xs.double().abs(), m[:, :3, :d])
+    if affine:
+        mag = mag + m[:, 3, :d]
+    err = (got.double() - ref.double()).abs()
+    assert bool((err <= 2.0 * 2.0 ** -23 * mag).all()), float(
+        (err / mag).max())
+
+
+def test_xform_wrapper_refuses_bad_inputs(cuda):
+    """A CUDA tensor never falls back to the plain version: another
+    device, dtype or shape, or more rows than shared memory holds,
+    raises."""
+    rng = np.random.default_rng(3)
+    table, ids, xs = _xf_inputs(rng, 2, "to_object", torch.int64, False,
+                                cuda, n=64)
+    xf = xform_cuda.instance_xform
+    bad = [
+        (table.cpu(), ids, xs, True, None),              # device
+        (table, ids.cpu(), xs, True, None),
+        (table.double(), ids, xs, True, None),           # dtype
+        (table, ids, xs.double(), True, None),
+        (table, ids.float(), xs, True, None),
+        (table, ids, xs, False, None),                   # shape
+        (table[:, :3, :3], ids, xs, True, None),
+        (table, ids, xs, True, 2),
+        (table, ids[:-1], xs, True, None),
+        (table, ids, xs[:, :2], True, None),
+        (table, ids, xs[None], True, None),
+        (table[:0], ids, xs, True, None),                # rows
+        (table[:1].expand(xform_cuda.max_rows() + 1, 4, 4), ids, xs,
+         True, None),
+    ]
+    n0 = xf.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            xf(*args)
+    assert xf.launches == n0
+
+
+def test_xform_kernel_has_no_frame_or_spills(cuda):
+    """ptxas gives XF's three instances no stack frame and no spills."""
+    from raytracedggx_tpu_torch.ops import cuda_lib
+
+    reports = cuda_lib.ptxas_reports(cuda_lib.build()[1])
+    rows = [r for name, r in reports.items()
+            if "instance_xform_kernel" in name]
+    assert len(rows) == 3 and all(r[1:] == (0, 0, 0) for r in rows), rows
