@@ -22,7 +22,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from spec import Refused
+from spec import Refused, extra_instances
 from standin import model_arrays, write_obj
 
 MID_RANGE = 64     # the mid-window frame checked is drawn from [1, 64)
@@ -118,8 +118,8 @@ def live_rays(aux, width, height, diffuse: bool) -> dict:
 def build(config, traffic, draw: Draw, device, renderer_cls=None):
     """(renderer, model arrays, time marks): the stand-in written as an
     OBJ under TMPDIR and loaded through ``Scene.create`` as a user's
-    ``-mesh``, the renderer built, the traffic's ``set_metallic`` calls
-    applied."""
+    ``-mesh``, with the configuration's extra instances, the renderer
+    built, the traffic's ``set_metallic`` calls applied."""
     from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
     from raytracedggx_tpu_torch.scene import Scene
 
@@ -130,24 +130,33 @@ def build(config, traffic, draw: Draw, device, renderer_cls=None):
         path = os.path.join(tmp, "model.obj")
         write_obj(path, arrays)
         marks["model_and_obj"] = time.time()
-        scene = Scene.create(path, pos_scale=tuple(config["model_pos_scale"]))
+        scene = Scene.create(path, pos_scale=tuple(config["model_pos_scale"]),
+                             extra_instances=extra_instances(config))
         marks["obj_parse"] = time.time()
     cfg = RenderConfig(width=config["width"], height=config["height"],
                        spatial=config["spatial"], temporal=config["temporal"],
                        kernels=config["kernels"],
                        traversal=config["traversal"])
     r = (renderer_cls or Renderer)(scene, config=cfg, device=device)
-    check_scene(config, r)
+    check_scene(config, r, draw.angle0)
     for mesh_idx, value in traffic["metallic"].items():
         r.set_metallic(int(mesh_idx), float(value))
     marks["renderer"] = time.time()
     return r, arrays, marks
 
 
-def check_scene(config, r):
+def check_scene(config, r, angle0):
     """The program renders the deployment the configuration states: its
-    instances, the model's triangles, float32 products without TF32."""
+    instances, where each of them is (the program's instance worlds at
+    the start angle, bit for bit those of the plain reference's scene),
+    the model's triangles, float32 products without TF32."""
     import torch
+
+    # read before the reference's modules load: they turn TF32 off
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise Refused("TF32 is on; the configuration states float32")
+    from reference.rt.scene.scene import instance_worlds
 
     found = {"instances": len(r.scene.mesh_ids),
              "model_triangles": r.scene.meshes[1].num_triangles}
@@ -155,9 +164,14 @@ def check_scene(config, r):
         if value != config[key]:
             raise Refused(f"the program built {key} {value}, the "
                           f"configuration states {config[key]}")
-    if torch.backends.cuda.matmul.allow_tf32 or \
-            torch.backends.cudnn.allow_tf32:
-        raise Refused("TF32 is on; the configuration states float32")
+    angle = np.float32(angle0)
+    stated = instance_worlds(angle, np.asarray(config["model_pos_scale"],
+                                               np.float32),
+                             extra_instances(config))
+    if not torch.equal(r.scene.worlds(angle).cpu(), stated):
+        raise Refused("the program's instance worlds at the start angle "
+                      "are not those that model_pos_scale and "
+                      "extra_instances state")
 
 
 def set_up(config, traffic, draw: Draw, device, t_start: float,

@@ -9,11 +9,17 @@ itself from the seed's start.  The start is checked on its own: the
 first two frames (the eager warm-up and the first captured frame) from
 a zero history, the reference on its own chain.
 
-Two numbers, each the worst over the kept frames:
+Three numbers, each the worst over the kept frames:
 - ``frame_mae``: the mean absolute difference of the tone-mapped frame
   (every pixel and channel);
 - ``history_rel``: the summed absolute difference of the f16 history
-  over the reference's summed absolute history.
+  over the reference's summed absolute history;
+- ``tile_mae``: the frame's mean absolute difference in the worst tile
+  of a 16 x 9 grid over it: a fault confined to one region, such as one
+  of several model instances drawn wrong, which the whole frame's mean
+  dilutes below its limit.
+Every cell's limits give the first two; ``tile_mae`` is compared where
+the cell's limits give it (``spec.NUMBERS``).
 """
 
 from __future__ import annotations
@@ -21,10 +27,12 @@ from __future__ import annotations
 import math
 
 import numpy as np
+import torch.nn.functional as F
 
 from reference.frame import ReferenceRenderer, State, advance
+from spec import NUMBERS, extra_instances
 
-NUMBERS = ("frame_mae", "history_rel")
+TILES = (9, 16)          # tile_mae's grid: rows, columns
 
 
 def reference_for(config, traffic, arrays, device):
@@ -33,7 +41,7 @@ def reference_for(config, traffic, arrays, device):
         config["height"],
         metallic={int(k): float(v) for k, v in traffic["metallic"].items()},
         spatial=config["spatial"], temporal=config["temporal"],
-        device=device)
+        device=device, extra_instances=extra_instances(config))
 
 
 def state_at(ref: ReferenceRenderer, draw, dt, done, history) -> State:
@@ -56,9 +64,12 @@ def gaps(frame, history, ref_frame, ref_history) -> dict:
     f = frame.to(ref_frame.device, dtype=ref_frame.dtype)
     h = history.to(ref_history.device).float()
     rh = ref_history.float()
-    return {"frame_mae": float((f - ref_frame).abs().mean()),
+    gap = (f - ref_frame).abs()
+    tiles = F.adaptive_avg_pool2d(gap.mean(-1)[None, None], TILES)
+    return {"frame_mae": float(gap.mean()),
             "history_rel": float((h - rh).abs().sum()
-                                 / rh.abs().sum().clamp(min=1e-30))}
+                                 / rh.abs().sum().clamp(min=1e-30)),
+            "tile_mae": float(tiles.max())}
 
 
 def reference_outputs(ref, kept, draw, dt, control=None):
@@ -96,5 +107,6 @@ def compare(kept, ref_out):
 
 
 def verdict(numbers: dict, limits: dict) -> bool:
+    """Each number the limits give within its limit."""
     return all(not math.isnan(numbers[n]) and numbers[n] <= limits[n]
-               for n in NUMBERS)
+               for n in limits)

@@ -8,8 +8,9 @@ three ray waves traced by the plain wavefront walk of each mesh's own
 LBVH in that instance's object space (no scene BVH and no kernel), the
 plain spatial passes, the TAA against the history it is given, and the
 tone map.  It takes only what the benchmark made: the model's arrays,
-its placement, the materials' metallic values, the resolution and the
-filter switches.  It imports nothing of the measured program.
+its placement and that of each extra instance, the materials' metallic
+values, the resolution and the filter switches.  It imports nothing of
+the measured program.
 
 ``tf32`` computes every float32 matrix product with its operands rounded
 to TF32 (10 mantissa bits, round to nearest), as tensor cores would with
@@ -85,10 +86,13 @@ class ReferenceRenderer:
     mesh: (positions (V, 3), normals (V, 3), indices (3T,)) of the model,
     in the object space the renderer loads (DirectX handedness);
     pos_scale: its placement (x, y, z, scale) over the ground cube;
-    metallic: {mesh index: value} set before the first frame."""
+    metallic: {mesh index: value} set before the first frame;
+    extra_instances: ((x, y, z, scale), ...) of further instances of the
+    model, after the first."""
 
     def __init__(self, mesh, pos_scale, width, height, metallic=None,
-                 spatial=True, temporal=True, device="cpu"):
+                 spatial=True, temporal=True, device="cpu",
+                 extra_instances=()):
         self.width, self.height = width, height
         self.spatial, self.temporal = spatial, temporal
         self.device = dev = torch.device(device)
@@ -102,7 +106,8 @@ class ReferenceRenderer:
                     Mesh(np.asarray(pos, np.float32), nrm.astype(np.float32),
                          np.asarray(idx, np.uint32))],
             materials=default_materials(),
-            pos_scale=np.asarray(pos_scale, np.float32))
+            pos_scale=np.asarray(pos_scale, np.float32),
+            extra_instances=tuple(extra_instances))
         self.camera = Camera(width=width, height=height)
         self.env = procedural_env(ENV_SIZE, dev)
         self.geom = upload_scene(self.scene, dev)

@@ -5,6 +5,8 @@ frame (RayTracer::UpdateFrame, RayTracer.cpp:269-279):
 
 - mesh 0 (ground): scaling(8, 0.5, 8) * translation(0, -0.5, 0)    [static]
 - mesh 1 (model):  scaling(s) * rotationY(angle) * translation(pos)
+- each extra instance of the model, after those two, placed as the model
+  is at its own (x, y, z, s): the same angle about its own origin
 
 Matrices are row-vector (``p @ M``) float32 CPU tensors; callers move them
 to their device.
@@ -27,18 +29,37 @@ MODEL = 1
 NUM_MESH = 2
 
 
+def model_world(angle, pos_scale):
+    """scaling(s) * rotationY(angle) * translation(x, y, z) of a model
+    instance placed at pos_scale (x, y, z, s)."""
+    s = float(pos_scale[3])
+    return (m3.scaling(s, s, s) @ m3.rotation_y(angle)
+            @ m3.translation(*[float(v) for v in pos_scale[:3]]))
+
+
+def instance_worlds(angle, pos_scale, extra_instances=(), ground_scale=8.0):
+    """(I, 4, 4) world matrices at animation angle: the ground, the model
+    at pos_scale, then each extra instance (x, y, z, s) in order."""
+    g = float(ground_scale)
+    ground = m3.scaling(g, 0.5, g) @ m3.translation(0.0, -0.5, 0.0)
+    return torch.stack([ground, model_world(angle, pos_scale)]
+                       + [model_world(angle, ps) for ps in extra_instances])
+
+
 @dataclass
 class Scene:
     meshes: List[Mesh]
     materials: Materials
     pos_scale: np.ndarray = field(
         default_factory=lambda: np.array([0.0, 0.0, 0.0, 1.0], np.float32))
+    # additional instances of the model, each (x, y, z, scale)
+    extra_instances: tuple = ()
     ground_scale: float = 8.0
 
     @property
     def mesh_ids(self):
-        """Instance -> mesh index (instance 0 = ground, 1 = the model)."""
-        return (0, 1)
+        """Instance -> mesh index (instance 0 = ground, rest = the model)."""
+        return (0, 1) + (1,) * len(self.extra_instances)
 
     def instance_materials(self) -> Materials:
         """Per-INSTANCE material arrays (instances share their mesh's
@@ -47,16 +68,10 @@ class Scene:
         return Materials(base_colors=self.materials.base_colors[ids].copy(),
                          rough_metals=self.materials.rough_metals[ids].copy())
 
-    def _model_world(self, angle, pos_scale):
-        s = float(pos_scale[3])
-        return (m3.scaling(s, s, s) @ m3.rotation_y(angle)
-                @ m3.translation(*[float(v) for v in pos_scale[:3]]))
-
     def worlds(self, angle):
         """(I, 4, 4) world matrices for animation angle."""
-        g = float(self.ground_scale)
-        ground = m3.scaling(g, 0.5, g) @ m3.translation(0.0, -0.5, 0.0)
-        return torch.stack([ground, self._model_world(angle, self.pos_scale)])
+        return instance_worlds(angle, self.pos_scale, self.extra_instances,
+                               self.ground_scale)
 
     def normal_matrices(self, worlds):
         """(I, 3, 3) inverse-transpose normal matrices."""

@@ -145,15 +145,18 @@ def run(cell, seed: int, seconds: float, trace: bool, device,
     del r, state
     if device.type == "cuda":
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
     t = time.time()
     ref = judge.reference_for(cfg, traffic, arrays, device)
     numbers, each = judge.compare(
         kept, judge.reference_outputs(ref, kept, draw, float(traffic["dt"])))
-    log(json.dumps({"reference_s": time.time() - t, "trace_s": trace_s,
+    log(json.dumps({"reference_s": time.time() - t, "reference_peak_bytes":
+                    int(torch.cuda.max_memory_allocated(device))
+                    if device.type == "cuda" else None, "trace_s": trace_s,
                     "kept_frames": [k.done for k in kept], "each": each}))
     failed = sum(not judge.verdict(g, cell.limits) for g in each)
     checks = {n: {"value": numbers[n], "limit": cell.limits[n]}
-              for n in judge.NUMBERS}
+              for n in judge.NUMBERS if n in cell.limits}
     if trace:
         metrics = {}
         for m in cell.per_layer:

@@ -8,7 +8,8 @@ Adding a cell, a mix, a configuration or a metric adds files and
 entries; nothing here changes.
 
 Every key of a configuration or a traffic mix is either acted on by the
-harness or only describes the deployment (``DESCRIBES``).  A key the
+harness or only describes the deployment (``DESCRIBES``); a key of
+``OPTIONAL`` may be left out and then means its default.  A key the
 harness does not know, or a value of a known key that it does not
 implement, is refused before anything runs: a cell written as data for a
 path the harness cannot drive gets an error, never the numbers of
@@ -18,6 +19,7 @@ from __future__ import annotations
 
 import importlib.util
 import json
+import math
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -33,19 +35,27 @@ CONFIG_KEYS = {
     "width": int, "height": int, "model_level": int, "model_triangles": int,
     "model_pos_scale": list, "spatial": bool, "temporal": bool,
     "traversal": str, "kernels": str,
+    "instances": int,               # 2 + len(extra_instances)
     "spp": (1,),                    # one primary ray a pixel
-    "instances": (2,),              # the ground cube and the model
     "mesh": ("standin",),           # standin.py, from the seed
     "model_tessellation": ("midpoint", "geodesic"),
     "probe": ("procedural_sky",),   # the program's sky where no probe is
     "tone_map": (True,),            # step_n always tone-maps
     "precision": ("float32, TF32 off; float16 TAA history",),
 }
+# keys that may be left out, with the value they then mean:
+# extra_instances, further instances of the model after the first, each
+# [x, y, z, scale] as the program's Scene.create(extra_instances=) takes
+# them (the model's animation turns each about its own origin)
+OPTIONAL = {"extra_instances": []}
 TRAFFIC_KEYS = {
     "dt": float, "frames_in_flight": int, "metallic": dict,
     "entry": ("step_n",),           # Renderer.step_n(state, 1) a frame
 }
 CHIPS = (1,)                        # step_n renders on one card
+# the numbers the comparison makes (judge.py): every cell's limits give
+# the first two, and tile_mae is compared where its limits give it
+NUMBERS = ("frame_mae", "history_rel", "tile_mae")
 
 
 class Refused(Exception):
@@ -99,19 +109,27 @@ def find_cell(name: str, root: Path = HERE.parent, here: Path = HERE) -> Cell:
     if int(w["chips"]) not in CHIPS:
         raise Refused(f"workload {name}: chips {w['chips']}, but the "
                       f"entry {traffic['entry']} renders on one card")
+    limits = load_json(here / "limits" / f"{name}.json")
+    for n in NUMBERS[:2]:
+        if n not in limits:
+            raise Refused(f"limits/{name}.json: no {n!r}")
+    for n in limits:
+        if n not in NUMBERS:
+            raise Refused(f"limits/{name}.json: the comparison makes no "
+                          f"{n!r} (it makes {', '.join(NUMBERS)})")
     return Cell(name=name, chips=int(w["chips"]), config=config,
                 traffic=traffic,
                 end_to_end=[m for m in bench["end_to_end"]
                             if reports(m, name)],
                 per_layer=[m for m in bench["per_layer"] if reports(m, name)],
-                limits=load_json(here / "limits" / f"{name}.json"))
+                limits=limits)
 
 
 def check_keys(where: str, data: dict, keys: dict):
     """Refuse a key the harness does not know, a missing one, or a value
     it does not implement."""
     for k in data:
-        if k not in keys and k not in DESCRIBES:
+        if k not in keys and k not in DESCRIBES and k not in OPTIONAL:
             raise Refused(f"{where}: the harness does not act on {k!r}")
     for k, allowed in keys.items():
         if k not in data:
@@ -135,7 +153,9 @@ def _name(allowed) -> str:
 
 
 def check_config(where: str, config: dict):
-    """The model's triangle count is the one its tessellation makes."""
+    """The model's triangle count is the one its tessellation makes; the
+    instance count is the one the layout gives, each extra instance four
+    finite numbers with a positive scale."""
     from standin import triangles
 
     made = triangles(config["model_tessellation"], config["model_level"])
@@ -143,6 +163,28 @@ def check_config(where: str, config: dict):
         raise Refused(f"{where}: model_triangles {config['model_triangles']}"
                       f", but {config['model_tessellation']} level "
                       f"{config['model_level']} makes {made}")
+    extra = config.get("extra_instances", OPTIONAL["extra_instances"])
+    if type(extra) is not list:
+        raise Refused(f"{where}: extra_instances {extra!r} is not a list")
+    for i, e in enumerate(extra):
+        if (type(e) is not list or len(e) != 4
+                or any(type(v) not in (int, float) or not math.isfinite(v)
+                       for v in e)):
+            raise Refused(f"{where}: extra_instances[{i}] {e!r} is not "
+                          "[x, y, z, scale] of four finite numbers")
+        if e[3] <= 0:
+            raise Refused(f"{where}: extra_instances[{i}] has scale {e[3]!r}"
+                          ", not above 0")
+    if config["instances"] != 2 + len(extra):
+        raise Refused(f"{where}: instances {config['instances']}, but the "
+                      f"ground, the model and {len(extra)} extra_instances "
+                      f"make {2 + len(extra)}")
+
+
+def extra_instances(config: dict) -> tuple:
+    """The configuration's extra instances as ((x, y, z, scale), ...)."""
+    return tuple(tuple(float(v) for v in e) for e in
+                 config.get("extra_instances", OPTIONAL["extra_instances"]))
 
 
 def reader(kind: str, name: str, here: Path = HERE):

@@ -29,6 +29,19 @@ def shrink(config, width=64, height=36, level=None):
     return config
 
 
+# three extra instances of the model, the first three of the port's bench
+# layout (bench.py:bench_scene, (2.5 (i % 3) - 2.5, 0, 2.5 (i // 3) - 2.5,
+# 0.6) for i = 1..3); each shows on a 64x36 frame
+EXTRA = [[0.0, 0.0, -2.5, 0.6], [2.5, 0.0, -2.5, 0.6], [-2.5, 0.0, 0.0, 0.6]]
+
+
+def with_extra(config):
+    """The configuration with EXTRA's instances, in place."""
+    config.update(instances=2 + len(EXTRA),
+                  extra_instances=[list(e) for e in EXTRA])
+    return config
+
+
 @pytest.fixture
 def tiny_cell():
     """A function: the named cell of BENCHMARK.json cut to a test's size."""

@@ -117,6 +117,22 @@ def test_busy_union_and_the_readers():
     assert gaps[1] == ("cudaGraphLaunch", pytest.approx(1e-3))
 
 
+def test_tile_mae_reads_the_worst_tile_and_counts_where_limited():
+    import judge
+
+    ref = torch.rand(36, 64, 3)
+    frame = ref.clone()
+    frame[4:8, 8:12] += 0.5                     # one whole 4x4 tile
+    hist = torch.rand(36, 64, 4).half()
+    g = judge.gaps(frame, hist, ref, hist.clone())
+    assert g["tile_mae"] == pytest.approx(0.5)
+    assert g["frame_mae"] == pytest.approx(0.5 / 144)
+    assert g["history_rel"] == 0.0
+    limits = {"frame_mae": 1e-2, "history_rel": 1e-2}
+    assert judge.verdict(g, limits)
+    assert not judge.verdict(g, dict(limits, tile_mae=0.1))
+
+
 def test_nothing_reads_out_of_an_empty_trace():
     t = _trace()
     for m in bench()["per_layer"]:
@@ -228,8 +244,8 @@ def test_unknown_workload_is_an_error():
 
 def _cell_with(tmp_path, kind, key, value):
     """A copy of the tree whose bunny cell has ``key`` set to ``value``
-    in its configuration, traffic mix or workload entry (``value`` None:
-    the key left out)."""
+    in its configuration, traffic mix, limits or workload entry (``value``
+    None: the key left out)."""
     _copy_tree(tmp_path)
     b = tmp_path / "benchmark"
     if kind == "workload":
@@ -238,8 +254,9 @@ def _cell_with(tmp_path, kind, key, value):
         entry = next(w for w in data["workloads"]
                      if w["name"] == "bunny-720p.anim-m1")
     else:
-        path = b / kind / ("bunny-720p.json" if kind == "configs"
-                           else "anim-m1.json")
+        path = b / kind / {"configs": "bunny-720p.json",
+                           "traffic": "anim-m1.json",
+                           "limits": "bunny-720p.anim-m1.json"}[kind]
         data = entry = json.loads(path.read_text())
     if value is None:
         del entry[key]
@@ -254,6 +271,14 @@ REFUSED = [("traffic", "entry", "step"),
            ("traffic", "entry", None),
            ("traffic", "burst", 4),
            ("configs", "instances", 8),
+           ("configs", "instances", "2"),
+           ("configs", "extra_instances", [[0.0, 0.0, -2.5, 0.6]]),
+           ("configs", "extra_instances", [[0.0, 0.0, 0.6]]),
+           ("configs", "extra_instances", [[0.0, 0.0, -2.5, "0.6"]]),
+           ("configs", "extra_instances", [[0.0, float("nan"), 0.0, 0.6]]),
+           ("configs", "extra_instances", [[0.0, 0.0, -2.5, 0.0]]),
+           ("configs", "extra_instances", [[0.0, 0.0, -2.5, -0.6]]),
+           ("configs", "extra_instances", {"0": [0.0, 0.0, -2.5, 0.6]}),
            ("configs", "spp", 4),
            ("configs", "tone_map", False),
            ("configs", "mesh", "dragon.obj"),
@@ -263,6 +288,8 @@ REFUSED = [("traffic", "entry", "step"),
            ("configs", "precision", "bfloat16"),
            ("configs", "width", 1280.0),
            ("configs", "msaa", 4),
+           ("limits", "history_rel", None),
+           ("limits", "frame_max", 0.1),
            ("workload", "chips", 4)]
 
 
@@ -272,6 +299,20 @@ def test_what_the_harness_does_not_implement_is_refused(tmp_path, kind,
     b = _cell_with(tmp_path, kind, key, value)
     with pytest.raises(spec.Refused, match=key):
         spec.find_cell("bunny-720p.anim-m1", root=tmp_path, here=b)
+
+
+def test_a_layout_that_gives_the_count_is_accepted(tmp_path):
+    from conftest import EXTRA
+
+    b = _cell_with(tmp_path, "configs", "extra_instances", EXTRA)
+    path = b / "configs" / "bunny-720p.json"
+    cfg = json.loads(path.read_text())
+    cfg["instances"] = 2 + len(EXTRA)
+    path.write_text(json.dumps(cfg))
+    cell = spec.find_cell("bunny-720p.anim-m1", root=tmp_path, here=b)
+    assert spec.extra_instances(cell.config) == tuple(map(tuple, EXTRA))
+    assert spec.extra_instances(spec.find_cell("bunny-720p.anim-m1")
+                                .config) == ()
 
 
 def test_an_unknown_entry_prints_no_result(tmp_path):

@@ -4,6 +4,7 @@ import numpy as np
 import pytest
 import torch
 
+from conftest import EXTRA
 from harness import Draw, set_up, window
 from reference.frame import ReferenceRenderer
 from standin import model_arrays, write_obj
@@ -11,11 +12,12 @@ from standin import model_arrays, write_obj
 W, H, SUBDIV = 64, 36, 3
 
 
-def _port(path, traversal, metallic):
+def _port(path, traversal, metallic, extra=()):
     from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
     from raytracedggx_tpu_torch.scene import Scene
 
-    scene = Scene.create(str(path), pos_scale=(0.0, 1.0, 0.0, 1.0))
+    scene = Scene.create(str(path), pos_scale=(0.0, 1.0, 0.0, 1.0),
+                         extra_instances=extra)
     r = Renderer(scene, config=RenderConfig(width=W, height=H,
                                             traversal=traversal),
                  device="cpu")
@@ -24,13 +26,14 @@ def _port(path, traversal, metallic):
     return r
 
 
-def _frames(tmp_path, traversal, metallic, n=3):
+def _frames(tmp_path, traversal, metallic, extra=(), n=3):
     arrays = model_arrays(SUBDIV, (0.3, 1.1, 2.0))
     path = tmp_path / "m.obj"
     write_obj(path, arrays)
-    r = _port(path, traversal, metallic)
+    r = _port(path, traversal, metallic, extra)
     ref = ReferenceRenderer(arrays, (0.0, 1.0, 0.0, 1.0), W, H,
-                            metallic={0: metallic, 1: metallic})
+                            metallic={0: metallic, 1: metallic},
+                            extra_instances=extra)
     st = r.init_state()._replace(angle=np.float32(0.7), frame=37)
     rs = ref.start_state(0.7, 37)
     out = []
@@ -61,23 +64,55 @@ def test_seed_moves_phases_not_topology():
     assert not np.array_equal(pa, pb)
 
 
-@pytest.mark.parametrize("metallic", [1.0, 0.5])
-def test_reference_is_the_ports_plain_route_bit_for_bit(tmp_path, metallic):
+# metallic, extra instances; the 2-instance cases keep their ids
+SCENES = [pytest.param(1.0, (), id="1.0"), pytest.param(0.5, (), id="0.5"),
+          pytest.param(1.0, EXTRA, id="1.0-extra3"),
+          pytest.param(0.5, EXTRA, id="0.5-extra3")]
+
+
+@pytest.mark.parametrize("metallic,extra", SCENES)
+def test_reference_is_the_ports_plain_route_bit_for_bit(tmp_path, metallic,
+                                                       extra):
     """On the CPU the port's "jax" traversal runs the plain code the
-    reference froze: frame and history agree bit for bit."""
-    for frame, hist, rframe, rhist in _frames(tmp_path, "jax", metallic):
+    reference froze: frame and history agree bit for bit, with 3 extra
+    instances of the model as with none."""
+    for frame, hist, rframe, rhist in _frames(tmp_path, "jax", metallic,
+                                              extra):
         assert torch.equal(frame, rframe)
         assert torch.equal(hist, rhist)
 
 
-@pytest.mark.parametrize("metallic", [1.0, 0.5])
-def test_reference_agrees_with_the_ports_main_path(tmp_path, metallic):
+@pytest.mark.parametrize("metallic,extra", SCENES)
+def test_reference_agrees_with_the_ports_main_path(tmp_path, metallic,
+                                                  extra):
     """The port's "wide" frame (K1's plain twin on the CPU) differs from
     the reference only by the routes' arithmetic."""
-    for frame, hist, rframe, rhist in _frames(tmp_path, "wide", metallic):
+    for frame, hist, rframe, rhist in _frames(tmp_path, "wide", metallic,
+                                              extra):
         assert float((frame - rframe).abs().mean()) < 5e-4
         h, rh = hist.float(), rhist.float()
         assert float((h - rh).abs().sum() / rh.abs().sum()) < 1e-3
+
+
+def test_every_extra_instance_shows_in_the_frame():
+    """The layout the extra-instance tests use puts each instance where
+    primary rays hit it, so that the comparisons above see all of them."""
+    from reference.rt.bvh import build_tlas
+    from reference.rt.trace.raygen import ray_trace_pass
+
+    ref = ReferenceRenderer(model_arrays(SUBDIV, (0.3, 1.1, 2.0)),
+                            (0.0, 1.0, 0.0, 1.0), W, H,
+                            metallic={0: 1.0, 1: 1.0}, extra_instances=EXTRA)
+    assert ref.scene.mesh_ids == (0, 1, 1, 1, 1)
+    st = ref.start_state(0.7, 37)
+    c = ref.constants(st.frame, st.angle, st.prev_wvp)
+    tlas = build_tlas(ref.geom.bounds, c.worlds, ref.scene.mesh_ids,
+                      inv_worlds=c.inv_worlds)
+    vis = ray_trace_pass(tlas, c, ref.materials, ref.env, ref.sh_coeffs, W,
+                         H, geom=ref.geom, trace_fn=ref.tracer,
+                         diffuse=False)["vis"]
+    shown = set(((vis[vis > 0] - 1) >> 24).tolist())
+    assert shown == set(range(2 + len(EXTRA)))
 
 
 def test_run_keeps_the_start_and_window_frames(tiny_cell):
