@@ -40,11 +40,14 @@
 //   * outputs t (t_max on a miss), u, v (0 on a miss), slot = leaf*L + k
 //     and inst = tag-1 as int32 (-1 on a miss).  Rays with t_max < 0 are
 //     dead and return at once.
-//   * stats (null, or stat_slots pairs of int64): child box tests and
-//     triangle tests, summed; block b adds to pair b % stat_slots.  One
-//     pair for the whole grid serialises every warp's two atomics on the
-//     same two addresses at the end of a wave (K1 +9-15% a frame on the
-//     NVIDIA H100); the caller sums the pairs.
+//   * stats (null, or stat_slots rows of stat_width int64): child box
+//     tests and triangle tests, summed, and with stat_width 3 the instance
+//     entries besides: the kind-3 children pushed (each popped once),
+//     each one instance's object-space subtree that the ray walks.  Block
+//     b adds to row b % stat_slots.  One row for the whole grid
+//     serialises every warp's atomics on the same addresses at the end of
+//     a wave (K1 +9-15% a frame on the NVIDIA H100); the caller sums the
+//     rows.
 //
 // What bounds it on this card: the latency of dependent loads.  A ray
 // pops a node, and only the node's four boxes say which rows come next,
@@ -131,11 +134,11 @@ trace_instanced_kernel(const float4* __restrict__ nodes,
                        float* __restrict__ out_v, float* __restrict__ out_n,
                        int* __restrict__ out_id, int* __restrict__ out_inst,
                        unsigned long long* __restrict__ stats,
-                       int stat_slots) {
+                       int stat_slots, int stat_width) {
   extern __shared__ int stack_smem[];  // [entry][thread]
   int* const stack = stack_smem + threadIdx.x;
   const int r = blockIdx.x * K1_THREADS + threadIdx.x;
-  unsigned n_box = 0, n_tri = 0;  // this ray's tests
+  unsigned n_box = 0, n_tri = 0, n_inst = 0;  // this ray's tests, entries
 
   if (r < n_rays) {
     const float wox = ray_o[3 * r], woy = ray_o[3 * r + 1], woz = ray_o[3 * r + 2];
@@ -161,6 +164,11 @@ trace_instanced_kernel(const float4* __restrict__ nodes,
           const float4* __restrict__ m = inv_mats + 3 * tag;
           ro = rtggx::make_ray(__ldg(m), __ldg(m + 1), __ldg(m + 2), wox, woy,
                                woz, wdx, wdy, wdz);
+          // a pushed instance entry is popped once, and the walk finishes
+          // its subtree before anything below it on the stack: so the
+          // switches to a tag other than the top tree's count the
+          // instance entries, off the per-child path
+          n_inst += tag != 0;
           cur_tag = tag;
         }
         const int kind[4] = {(int)kinds.x, (int)kinds.y, (int)kinds.z,
@@ -272,9 +280,15 @@ trace_instanced_kernel(const float4* __restrict__ nodes,
     out_inst[r] = best_inst;
   }
   // every thread of the warp is here
-  rtggx::add_stats(stats == nullptr ? nullptr
-                                    : stats + 2 * (blockIdx.x % stat_slots),
-                   n_box, n_tri);
+  unsigned long long* const row =
+      stats == nullptr ? nullptr
+                       : stats + stat_width * (blockIdx.x % stat_slots);
+  rtggx::add_stats(row, n_box, n_tri);
+  if (row != nullptr && stat_width == 3) {
+    n_inst = __reduce_add_sync(0xFFFFFFFFu, n_inst);
+    if ((threadIdx.x & 31) == 0)
+      atomicAdd(row + 2, (unsigned long long)n_inst);
+  }
 }
 
 template <int MODE>
@@ -283,7 +297,7 @@ void launch(const void* nodes, const void* tris4, const void* inv_mats,
             const void* t_max, float t_min, int n_rays, int leaf_size,
             int stack_size, void* out_t, void* out_u, void* out_v,
             void* out_n, void* out_id, void* out_inst, void* stats,
-            int stat_slots, void* stream) {
+            int stat_slots, int stat_width, void* stream) {
   const int blocks = (n_rays + K1_THREADS - 1) / K1_THREADS;
   const size_t smem = sizeof(int) * K1_THREADS * stack_size;
   trace_instanced_kernel<MODE>
@@ -293,7 +307,8 @@ void launch(const void* nodes, const void* tris4, const void* inv_mats,
           (const float*)ray_o, (const float*)ray_d, (const float*)t_max,
           t_min, n_rays, leaf_size, stack_size, (float*)out_t,
           (float*)out_u, (float*)out_v, (float*)out_n, (int*)out_id,
-          (int*)out_inst, (unsigned long long*)stats, stat_slots);
+          (int*)out_inst, (unsigned long long*)stats, stat_slots,
+          stat_width);
 }
 
 // K1e, K1s's epilogue: u, v of each ray's winning slot (0 where slot < 0),
@@ -352,7 +367,8 @@ extern "C" int rtggx_slim_uv(const void* tris4, const void* inv_mats,
 // mode: 0 lean, 1 slim (out_u, out_v, out_n and attrs4 unused), 2 fat
 // (out_id takes prim).  stack_size: entries per thread, the tree's bound
 // (1..K1_MAX_STACK); the launch takes stack_size * 128 * 4 bytes of
-// shared memory per block.  stats: null, or stat_slots (>= 1) pairs.
+// shared memory per block.  stats: null, or stat_slots (>= 1) rows of
+// stat_width (2: box and triangle tests; 3: instance entries besides).
 extern "C" int rtggx_trace_instanced(const void* nodes, const void* tris4,
                                      const void* inv_mats, const void* attrs4,
                                      const void* ray_o, const void* ray_d,
@@ -362,23 +378,26 @@ extern "C" int rtggx_trace_instanced(const void* nodes, const void* tris4,
                                      void* out_u, void* out_v, void* out_n,
                                      void* out_id, void* out_inst,
                                      void* stats, int stat_slots,
-                                     void* stream) {
+                                     int stat_width, void* stream) {
   if (n_rays <= 0) return 0;
-  if (stack_size < 1 || stack_size > K1_MAX_STACK || stat_slots < 1)
+  if (stack_size < 1 || stack_size > K1_MAX_STACK || stat_slots < 1 ||
+      (stat_width != 2 && stat_width != 3))
     return (int)cudaErrorInvalidValue;
   if (mode == K1_LEAN && out_u && out_v)
     launch<K1_LEAN>(nodes, tris4, inv_mats, nullptr, ray_o, ray_d, t_max,
                     t_min, n_rays, leaf_size, stack_size, out_t, out_u, out_v,
-                    nullptr, out_id, out_inst, stats, stat_slots, stream);
+                    nullptr, out_id, out_inst, stats, stat_slots, stat_width,
+                    stream);
   else if (mode == K1_SLIM)
     launch<K1_SLIM>(nodes, tris4, inv_mats, nullptr, ray_o, ray_d, t_max,
                     t_min, n_rays, leaf_size, stack_size, out_t, nullptr,
                     nullptr, nullptr, out_id, out_inst, stats, stat_slots,
-                    stream);
+                    stat_width, stream);
   else if (mode == K1_FAT && attrs4 && out_u && out_v && out_n)
     launch<K1_FAT>(nodes, tris4, inv_mats, attrs4, ray_o, ray_d, t_max,
                    t_min, n_rays, leaf_size, stack_size, out_t, out_u, out_v,
-                   out_n, out_id, out_inst, stats, stat_slots, stream);
+                   out_n, out_id, out_inst, stats, stat_slots, stat_width,
+                   stream);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -13,13 +13,15 @@ counters and the frame loop's host spans.
   captured frame and its warm-up, each band of ``ShardedRenderer``);
   nothing switches them off.  ``stage_ms`` turns a profiler's events
   into each stage's time per frame.
-- **K1's work.**  One process-wide ``(3, K1_SLOTS, 2)`` int64 tensor per
+- **K1's work.**  One process-wide ``(3, K1_SLOTS, 3)`` int64 tensor per
   device (``k1_stats``): the primary, reflection and diffuse waves, each
-  ``K1_SLOTS`` pairs of the child-box tests and triangle tests that K1
-  adds to them, K1's block b to pair b % K1_SLOTS, so that its warps'
-  atomics do not all meet on two addresses (``"wide"`` traversal, CUDA
-  only; K1's plain version on CPU tensors adds nothing).  A captured
-  frame bakes its address in, so every replay adds to it.
+  ``K1_SLOTS`` rows of the child-box tests, triangle tests and instance
+  entries (``K1_COUNTS``) that K1 adds to them, K1's block b to row
+  b % K1_SLOTS, so that its warps' atomics do not all meet on the same
+  addresses (``"wide"`` traversal, CUDA only; K1's plain version on CPU
+  tensors adds nothing).  An instance entry is one instance's
+  object-space subtree that a ray walks (K1 pushes its top-tree child).
+  A captured frame bakes its address in, so every replay adds to it.
   ``count_frames`` counts the frames the program ran: each ``step``,
   each eager warm-up frame of a capture and each graph replay.
   ``counts`` reads both.
@@ -42,9 +44,11 @@ STAGES = ("refit", "primary", "reflection", "diffuse", "spatial", "taa",
           "tonemap", "end")
 WAVES = ("primary", "reflection", "diffuse")
 K1_SLOTS = 128
+# the columns of a row of K1's counters, under their names in counts()
+K1_COUNTS = ("k1_box_tests", "k1_tri_tests", "k1_inst_entries")
 MARK = "rtggx_mark_"
 
-_k1 = {}            # device -> (len(WAVES), K1_SLOTS, 2) int64 counters
+_k1 = {}            # device -> (len(WAVES), K1_SLOTS, 3) int64 counters
 _frames = 0
 
 
@@ -83,11 +87,11 @@ def _record(name: str):
 
 
 def k1_stats(device) -> torch.Tensor:
-    """``device``'s (3, K1_SLOTS, 2) int64 K1 counters, made zero at first
+    """``device``'s (3, K1_SLOTS, 3) int64 K1 counters, made zero at first
     use; make them before a frame is captured, which then adds to them."""
     device = torch.device(device)
     if device not in _k1:
-        _k1[device] = torch.zeros((len(WAVES), K1_SLOTS, 2),
+        _k1[device] = torch.zeros((len(WAVES), K1_SLOTS, len(K1_COUNTS)),
                                   dtype=torch.int64, device=device)
     return _k1[device]
 
@@ -99,15 +103,15 @@ def count_frames(n: int = 1) -> None:
 
 def counts() -> dict:
     """{"k1_box_tests": [primary, reflection, diffuse], "k1_tri_tests":
-    [...], "frames": frames run}, summed over devices since the process
-    started.  Reads the counters back: call it after the work."""
-    total = [[0, 0] for _ in WAVES]
+    [...], "k1_inst_entries": [...], "frames": frames run}, summed over
+    devices since the process started.  Reads the counters back: call it
+    after the work."""
+    total = torch.zeros((len(WAVES), len(K1_COUNTS)), dtype=torch.int64)
     for stats in _k1.values():
-        for row, got in zip(total, stats.sum(dim=1).tolist()):
-            row[0] += got[0]
-            row[1] += got[1]
-    return {"k1_box_tests": [r[0] for r in total],
-            "k1_tri_tests": [r[1] for r in total], "frames": _frames}
+        total += stats.sum(dim=1).cpu()
+    out = {name: col for name, col in zip(K1_COUNTS, total.t().tolist())}
+    out["frames"] = _frames
+    return out
 
 
 def mark_events(events) -> list:

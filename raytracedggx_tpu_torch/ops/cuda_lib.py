@@ -37,9 +37,10 @@ _F = ctypes.c_float
 _L = ctypes.c_longlong
 SIGNATURES = {
     # K1: nodes tris inv_mats attrs4 ray_o ray_d t_max t_min n_rays L stack
-    # mode out_t out_u out_v out_n out_id out_inst stats stat_slots stream
+    # mode out_t out_u out_v out_n out_id out_inst stats stat_slots
+    # stat_width stream
     "rtggx_trace_instanced": (_P, _P, _P, _P, _P, _P, _P, _F, _I, _I, _I,
-                              _I, _P, _P, _P, _P, _P, _P, _P, _I, _P),
+                              _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
     # K1e: tris4 inv_mats ray_o ray_d slot inst n_rays out_u out_v stream
     "rtggx_slim_uv": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _P),
     # K2: axis src normal rough depth gauss_table n_br out H W width br_max

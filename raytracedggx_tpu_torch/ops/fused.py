@@ -268,7 +268,8 @@ def trace_tiles_instanced(nodes, tris4, inv_mats, inst_slots, ray_o, ray_d,
     the mode's outputs (module docstring).  CUDA tensors launch the kernel
     (or raise); CPU tensors take ``trace_instanced_plain`` on the (S, 9)
     slots, which leaves stats untouched.  stats: optional (2,) or (n, 2)
-    int64 tensor the kernel adds its box and triangle tests to, block b
+    int64 tensor the kernel adds its box and triangle tests to, or (3,)
+    or (n, 3) for its instance entries besides (``stat_layout``), block b
     to row b % n (n rows spread the warps' atomics; the caller sums
     them).  Launches count per mode: ``launches`` (lean),
     ``launches_slim``, ``launches_fat``.
@@ -292,8 +293,10 @@ def trace_tiles_instanced(nodes, tris4, inv_mats, inst_slots, ray_o, ray_d,
     if mode == "fat":
         require("attrs4", attrs4, (tris4.shape[0], 12), f32, dev)
         rows.append(("attrs4", attrs4))
+    slots, width = 1, 2
     if stats is not None:
-        require("stats", stats.view(-1, 2), (None, 2), torch.int64, dev)
+        slots, width = stat_layout(stats)
+        require("stats", stats, (None,) * stats.dim(), torch.int64, dev)
     for name, t in rows:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: K1 reads float4 rows, need a "
@@ -318,8 +321,8 @@ def trace_tiles_instanced(nodes, tris4, inv_mats, inst_slots, ray_o, ray_d,
         ray_d.data_ptr(), t_max.data_ptr(), float(t_min), R, int(leaf_size),
         int(stack), MODES[mode], out_t.data_ptr(), pointer(out_u),
         pointer(out_v), pointer(out_n), out_id.data_ptr(),
-        out_inst.data_ptr(), pointer(stats),
-        1 if stats is None else stats.numel() // 2, stream_handle(dev))
+        out_inst.data_ptr(), pointer(stats), slots, width,
+        stream_handle(dev))
     check_launch(err, f"K1 trace_tiles_instanced ({mode})")
     if mode == "slim":
         trace_tiles_instanced.launches_slim += 1
@@ -334,6 +337,18 @@ def trace_tiles_instanced(nodes, tris4, inv_mats, inst_slots, ray_o, ray_d,
 trace_tiles_instanced.launches = 0
 trace_tiles_instanced.launches_slim = 0
 trace_tiles_instanced.launches_fat = 0
+
+
+def stat_layout(stats) -> tuple:
+    """(rows, width) of a K1 stats tensor: a (w,) or (n, w) shape, w 2
+    (child-box and triangle tests) or 3 (instance entries besides: the
+    kind-3 children K1 pushes, each a walk into one instance's
+    object-space subtree); else ValueError."""
+    shape = tuple(stats.shape)
+    if len(shape) not in (1, 2) or shape[-1] not in (2, 3) or 0 in shape:
+        raise ValueError(f"stats: need shape (2,), (n, 2), (3,) or (n, 3), "
+                         f"got {shape}")
+    return (1 if len(shape) == 1 else shape[0]), shape[-1]
 
 
 def slim_uv_plain(tris, inv_mats, ray_o, ray_d, slot, inst):

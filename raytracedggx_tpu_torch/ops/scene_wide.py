@@ -473,7 +473,8 @@ def trace_scene_wide_fused(sw: SceneWideBVH, ray_o, ray_d, t_min, t_max,
     lean tree.
 
     stats: an optional (2,) or (n, 2) int64 tensor to which K1, in every
-    mode, adds its child-box tests and triangle tests
+    mode, adds its child-box tests and triangle tests, or a (3,) or
+    (n, 3) one for its instance entries besides
     (``trace_tiles_instanced``; ``engine.spans``); the plain version on
     CPU tensors leaves it untouched."""
     o, d = ray_o.contiguous(), ray_d.contiguous()
