@@ -8,8 +8,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
  1. build the CUDA kernels from csrc/ (one nvcc per source, sm_90a) and
     load them; print ptxas's registers, stack frame and spills of every
     kernel, and fail if one of K1's 3 instances (lean, slim K1s, fat K1f),
-    K1e, K4, K5, K7 or an instance of K6a, K6b or XF has a stack frame or
-    spills;
+    K1e, K4, K5, K7 or an instance of K6a, K6b, XF or TS has a stack frame
+    or spills;
  2. the scene: ground cube + a deterministic ~82k-triangle displaced
     icosphere standing in for the bunny; its instanced scene BVH (the
     renderer's leaf size, 8) for traversal="wide" and its per-mesh trees
@@ -31,7 +31,9 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     triangle id), and through their per-instance loop on the nested
     scene; K2/K3 on 1280x720 G-buffers, both axes; XF, the waves'
     per-instance transforms, in its three forms on 921,600 rays against
-    its plain version (take_small + einsum) and the einsum alone;
+    its plain version (take_small + einsum) and the einsum alone; TS, the
+    TAA, bit for bit its plain version at 1280x720, 3840x2160, 67x37 and
+    on a band, timed beside it at the two frame sizes;
  4. the paths at 1280x720, each with every launch count set to 0 just
     before it and read just after: "wide" (3 warm-up, 60 timed frames, then
     10 at metallic 0.5), then "pallas4" and "pallas" (3 warm-up, 20 timed,
@@ -125,7 +127,8 @@ KNOB_TIMED, KNOB_METAL = 20, 5      # the knob paths' frames, per path
 FAT_REPS = 10                       # K1f's API path: passes over both waves
 ANCHOR_FRAMES = 5                   # anchorbench's launches per order
 # the launch counters, in the order of every per-frame list below
-COUNTED = ("K1", "K1s", "K1f", "K1e", "K2", "K3", "K4", "K5", "XF")
+COUNTED = ("K1", "K1s", "K1f", "K1e", "K2", "K3", "K4", "K5", "XF",
+           "TS")
 F32_EPS = 2.0 ** -23
 K1_RAYS = 16384
 K1_LEAVES = (8, 64)     # the renderer's leaf size (checked), and the old one
@@ -212,7 +215,8 @@ def build_kernels():
                       ("K5", "trace_wide4_kernel", 1),
                       ("K6a", "lab_kernel", 6), ("K6b", "ls_kernel", 2),
                       ("K7", "mxu_kernel", 1),
-                      ("XF", "instance_xform_kernel", 3)):
+                      ("XF", "instance_xform_kernel", 3),
+                      ("TS", "temporal_ss_kernel", 2)):
         rows = [r for name, r in reports.items() if key in name]
         check(len(rows) == n and all(r[1:] == (0, 0, 0) for r in rows),
               f"{k}: {n} instance(s), no stack frame and no spills")
@@ -703,6 +707,88 @@ def xform_check(rng, device, n=W * H, reps=20):
     return dict(rows["to_object"], max_abs_err=max(errs))
 
 
+def ts_inputs(rng, h, w, device, hist_dtype=torch.float16, motion=0.002):
+    """TS's inputs as a frame hands them over (the pattern of
+    tests/test_torch_cuda.py:_ts_inputs): HDR colour whose alpha, the hit
+    flag, is 1 inside an ellipse and 0 outside; velocities of ``motion``
+    viewports, one pixel in 64 thrown up to 1.5 viewports (past every
+    border); a history with counts k / 15; NaN in one history pixel in
+    4096 and one more (the result's NaN fallback), and in one colour
+    value."""
+    cur = rng.uniform(0.0, 4.0, (h, w, 4)).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w]
+    cur[..., 3] = (((yy - h / 2) / (0.4 * h)) ** 2
+                   + ((xx - w / 2) / (0.4 * w)) ** 2) < 1.0
+    vel = rng.normal(0.0, motion, (h, w, 2)).astype(np.float32)
+    far = rng.random((h, w)) < 1 / 64
+    vel[far] = rng.uniform(-1.5, 1.5, (int(far.sum()), 2))
+    hist = rng.uniform(0.0, 4.0, (h, w, 4)).astype(np.float32)
+    hist[..., 3] = rng.integers(0, 16, (h, w)) / 15.0
+    hist[rng.random((h, w)) < 1 / 4096, 1] = np.nan
+    hist[h // 4, w // 4, 1] = np.nan
+    cur[h // 2, w // 2, 0] = np.nan
+    return (torch.as_tensor(cur, device=device),
+            torch.as_tensor(hist, device=device).to(hist_dtype),
+            torch.as_tensor(vel, device=device))
+
+
+def ts_differ(got, ref):
+    """Elements of two float32 tensors that differ in their bits (a NaN
+    equals a NaN)."""
+    same = (got.view(torch.int32) == ref.view(torch.int32)) \
+        | (got.isnan() & ref.isnan())
+    return int((~same).sum())
+
+
+def ts_check(rng, device, reps=20):
+    """TS against its plain version (denoise/temporal.py:temporal_ss) on
+    the card, bit for bit: at 1280x720 and 3840x2160 with the frame's f16
+    history (``ts_inputs``), at 67x37 with an f32 history, and as a band
+    of 37 rows from row -5 of a 47-row image with its velocity a strided
+    view.  Times the kernel and the plain version at both frame sizes;
+    bound: 40 B a pixel (colour, velocity and the f16 history read, the
+    f16 history written) and ~150 operations.  Returns the 1280x720 row
+    dict(max_abs_err, ms, plain_ms, bound_ms, bound_by) and the 4K row's
+    under "4k"."""
+    from raytracedggx_tpu_torch.denoise.temporal import temporal_ss as plain
+    from raytracedggx_tpu_torch.ops.temporal_cuda import temporal_ss
+
+    rows = {}
+    for label, h, w, dtype in (("720p", H, W, torch.float16),
+                               ("4k", 2160, 3840, torch.float16),
+                               ("67x37 f32", 37, 67, torch.float32)):
+        cur, hist, vel = ts_inputs(rng, h, w, device, dtype)
+        n0 = temporal_ss.launches
+        got, ref = temporal_ss(cur, hist, vel), plain(cur, hist, vel)
+        torch.cuda.synchronize()
+        check(temporal_ss.launches == n0 + 1, f"TS {label}: one launch")
+        n = ts_differ(got, ref)
+        err = float((got - ref).abs().nan_to_num(0.0).max())
+        check(n == 0, f"TS {label}: {h * w} pixels bit for bit the plain "
+              f"version ({n} values differ, max |diff| {err:.3e}; "
+              f"{int(ref.isnan().any(-1).sum())} NaN pixels on both)")
+        if h * w < 10000:
+            continue
+        ms, plain_ms = time_pair(f"TS {label}",
+                                 lambda: temporal_ss(cur, hist, vel),
+                                 lambda: plain(cur, hist, vel),
+                                 kern_reps=reps, plain_reps=3)
+        bound_ms, bound_by = bound(h * w * 40, h * w * 150)
+        print(f"    bound {bound_ms:.6f} ms ({bound_by}), kernel at "
+              f"{100 * bound_ms / ms:.1f}% of it")
+        rows[label] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+    cur, hist, vel = ts_inputs(rng, 37, 67, device, motion=0.1)
+    vel = torch.cat([vel, vel], dim=-1)[..., 1:3]
+    for row0 in (-5, 10):
+        got = temporal_ss(cur, hist, vel, full_size=(67, 47), row0=row0)
+        ref = plain(cur, hist, vel, full_size=(67, 47), row0=row0)
+        n = ts_differ(got, ref)
+        check(n == 0, f"TS band from row {row0} of 47, strided velocity: "
+              f"bit for bit ({n} values differ)")
+    return dict(rows["720p"], **{"4k": rows["4k"]})
+
+
 # ---------------------------------------------------------------- phase 4
 def zero_counts():
     from raytracedggx_tpu_torch.engine.renderer import launch_counters
@@ -797,14 +883,14 @@ def kernels_switch_check(scene, dev, card, frames=3):
     f = frame.float()
     check(bool(torch.isfinite(f).all()) and float(f.std()) > 1e-3,
           "kernels='xla': frame finite and not constant")
-    want = [2, 0, 0, 0, 0, 0, 0, 0, 6]
+    want = [2, 0, 0, 0, 0, 0, 0, 0, 6, 1]
     check(counts == [n * frames for n in want], f"kernels='xla': launches "
           f"{'/'.join(COUNTED)} {counts} = {want} per frame")
     r.set_kernels("auto")
     zero_counts()
     r.step(state)
     counts = read_counts()
-    want = [2, 0, 0, 0, 2, 0, 0, 0, 6]
+    want = [2, 0, 0, 0, 2, 0, 0, 0, 6, 1]
     check(counts == want, f"set_kernels('auto'): launches "
           f"{'/'.join(COUNTED)} {counts} = {want} in the next frame")
 
@@ -822,15 +908,15 @@ def knob_paths(scene, dev, card, width=W, height=H):
 
     size = dict(width=width, height=height)
     paths = {  # config, launches per frame, and at metallic 0.5
-        "default": (RenderConfig(**size), [2, 0, 0, 0, 2, 0, 0, 0, 6],
-                    [3, 0, 0, 0, 2, 2, 0, 0, 8]),
+        "default": (RenderConfig(**size), [2, 0, 0, 0, 2, 0, 0, 0, 6, 1],
+                    [3, 0, 0, 0, 2, 2, 0, 0, 8, 1]),
         "trace_slim": (RenderConfig(trace_slim=True, **size),
-                       [0, 2, 0, 2, 2, 0, 0, 0, 6],
-                       [0, 3, 0, 3, 2, 2, 0, 0, 8]),
+                       [0, 2, 0, 2, 2, 0, 0, 0, 6, 1],
+                       [0, 3, 0, 3, 2, 2, 0, 0, 8, 1]),
         "sort_anchor": (RenderConfig(sort_anchor=32, sort_dir_bits=6,
                                      **size),
-                        [2, 0, 0, 0, 2, 0, 0, 0, 6],
-                        [3, 0, 0, 0, 2, 2, 0, 0, 8]),
+                        [2, 0, 0, 0, 2, 0, 0, 0, 6, 1],
+                        [3, 0, 0, 0, 2, 2, 0, 0, 8, 1]),
     }
     rs, states, frames, ms = {}, {}, {}, {}
     launches = {k: [0] * len(COUNTED) for k in paths}
@@ -917,7 +1003,7 @@ def fat_path_check(renderer, worlds, waves):
         outs = [trace_scene_wide_fused(sw_f, *w) for w in waves]
     torch.cuda.synchronize()
     counts = read_counts()
-    want = [0, 0, 2 * FAT_REPS, 0, 0, 0, 0, 0, 0]
+    want = [0, 0, 2 * FAT_REPS, 0, 0, 0, 0, 0, 0, 0]
     check(counts == want, f"K1f API path: launches {'/'.join(COUNTED)} "
           f"{counts} = {want} over {FAT_REPS} passes of both waves")
     for label, w, (rec, nrm) in zip(("primary", "reflection"), waves, outs):
@@ -1236,10 +1322,12 @@ def capture_check(r, label, per_frame, per_frame_metal, frames=3,
                           if "slim_uv_kernel" in name)
         seen["XF"] = sum(1 for name, _, _ in events
                          if "instance_xform_kernel" in name)
+        seen["TS"] = sum(1 for name, _, _ in events
+                         if "temporal_ss_kernel" in name)
         by = dict(zip(COUNTED, got))
         expect = {"K1": by["K1"] + by["K1s"] + by["K1f"], "K1e": by["K1e"],
                   "K2": by["K2"], "K3": by["K3"], "K4": by["K4"],
-                  "K5": by["K5"], "XF": by["XF"]}
+                  "K5": by["K5"], "XF": by["XF"], "TS": by["TS"]}
         expect = {k: v * replays for k, v in expect.items()}
         print(f"  {label} metallic {metallic:g}: {replays} replays under "
               f"torch.profiler, kernels by name {seen}")
@@ -1412,17 +1500,17 @@ def frame_loop(renderer, per_mesh, dev, card):
     from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
 
     t0 = time.perf_counter()
-    capture_check(renderer, "wide", [2, 0, 0, 0, 2, 0, 0, 0, 6],
-                  [3, 0, 0, 0, 2, 2, 0, 0, 8])
+    capture_check(renderer, "wide", [2, 0, 0, 0, 2, 0, 0, 0, 6, 1],
+                  [3, 0, 0, 0, 2, 2, 0, 0, 8, 1])
     slim = Renderer(renderer.scene, config=RenderConfig(trace_slim=True),
                     device=dev)
-    capture_check(slim, "wide trace_slim", [0, 2, 0, 2, 2, 0, 0, 0, 6],
-                  [0, 3, 0, 3, 2, 2, 0, 0, 8])
+    capture_check(slim, "wide trace_slim", [0, 2, 0, 2, 2, 0, 0, 0, 6, 1],
+                  [0, 3, 0, 3, 2, 2, 0, 0, 8, 1])
     del slim
-    capture_check(per_mesh["pallas4"], "pallas4", [0, 0, 0, 0, 2, 0, 0, 4, 5],
-                  [0, 0, 0, 0, 2, 2, 0, 6, 6])
-    capture_check(per_mesh["pallas"], "pallas", [0, 0, 0, 0, 2, 0, 4, 0, 5],
-                  [0, 0, 0, 0, 2, 2, 6, 0, 6])
+    capture_check(per_mesh["pallas4"], "pallas4", [0, 0, 0, 0, 2, 0, 0, 4, 5, 1],
+                  [0, 0, 0, 0, 2, 2, 0, 6, 6, 1])
+    capture_check(per_mesh["pallas"], "pallas", [0, 0, 0, 0, 2, 0, 4, 0, 5, 1],
+                  [0, 0, 0, 0, 2, 2, 6, 0, 6, 1])
     t1 = time.perf_counter()
     async_check(renderer)
     timing = {m: loop_timing(renderer, card, m) for m in (1.0, 0.5)}
@@ -1530,8 +1618,8 @@ def bands_check(scene, dev, card):
     check((bands.band, bands.halo) == (band, BAND_HALO),
           f"{BANDS} bands of {band} rows, halo {BAND_HALO}")
     launches = [0, 0, 0]
-    for metallic, want in ((1.0, [2, 0, 0, 0, 2, 0, 0, 0, 6]),
-                           (0.5, [3, 0, 0, 0, 2, 2, 0, 0, 8])):
+    for metallic, want in ((1.0, [2, 0, 0, 0, 2, 0, 0, 0, 6, 1]),
+                           (0.5, [3, 0, 0, 0, 2, 2, 0, 0, 8, 1])):
         for r in (single, bands):
             for mesh_idx in (0, 1):
                 r.set_metallic(mesh_idx, metallic)
@@ -1752,19 +1840,20 @@ def main():
     res.update(spatial_check(aux, W, H))
     del rm, aux
     res["XF"] = xform_check(rng, dev)
+    res["TS"] = ts_check(rng, dev)
 
     print("== phase 4: paths at 1280x720")
     runs = {"wide": drive_path(renderer, "wide", TIMED_FRAMES, METAL_FRAMES,
-                               [2, 0, 0, 0, 2, 0, 0, 0, 6],
-                               [3, 0, 0, 0, 2, 2, 0, 0, 8], card)}
+                               [2, 0, 0, 0, 2, 0, 0, 0, 6, 1],
+                               [3, 0, 0, 0, 2, 2, 0, 0, 8, 1], card)}
     runs["pallas4"] = drive_path(per_mesh["pallas4"], "pallas4",
                                  PER_MESH_TIMED, PER_MESH_METAL,
-                                 [0, 0, 0, 0, 2, 0, 0, 4, 5],
-                                 [0, 0, 0, 0, 2, 2, 0, 6, 6], card)
+                                 [0, 0, 0, 0, 2, 0, 0, 4, 5, 1],
+                                 [0, 0, 0, 0, 2, 2, 0, 6, 6, 1], card)
     runs["pallas"] = drive_path(per_mesh["pallas"], "pallas",
                                 PER_MESH_TIMED, PER_MESH_METAL,
-                                [0, 0, 0, 0, 2, 0, 4, 0, 5],
-                                [0, 0, 0, 0, 2, 2, 6, 0, 6], card)
+                                [0, 0, 0, 0, 2, 0, 4, 0, 5, 1],
+                                [0, 0, 0, 0, 2, 2, 6, 0, 6, 1], card)
     kernels_switch_check(scene, dev, card)
     knobs = knob_paths(scene, dev, card)
     fat_launches = fat_path_check(renderer, worlds_f, waves)
@@ -1823,6 +1912,10 @@ def main():
         # no Pallas kernel: the take_small one-hot matmuls and einsums
         ("XF instance_xform", "csrc/xform.cu",
          "raytracedggx_tpu/trace/raygen.py:313", runs["wide"]["launches"][8]),
+        # no Pallas kernel: the JAX package leaves the TAA to XLA
+        ("TS temporal_ss", "csrc/temporal.cu",
+         "raytracedggx_tpu/denoise/temporal.py:148",
+         runs["wide"]["launches"][9]),
     ]
     # K1-K3 also launch on the bench's configs (phase 8, counted in the
     # bench's process) and on the bands (phase 9): "launches" is the sum

@@ -41,9 +41,9 @@ second CUDA stream that the render waits on; the output is the same.
 
 Everything per pixel runs on ``device``, the CUDA card unless the caller
 passes ``device="cpu"`` (with no CUDA device the constructor raises; it
-never falls back to the CPU).  The traversal kernels (K1, K4, K5) run for
-CUDA tensors and their plain versions for CPU tensors, whatever
-``kernels`` says.  ``kernels`` picks only the spatial filters'
+never falls back to the CPU).  The traversal kernels (K1, K4, K5), the
+waves' transforms (XF) and the TAA (TS) run for CUDA tensors and their
+plain versions for CPU tensors, whatever ``kernels`` says.  ``kernels`` picks only the spatial filters'
 implementation, as in the reference (its 'V' toggle): "auto" and "cuda"
 run kernels K2 and K3 (for CPU tensors their plain versions; "cuda"
 requires a CUDA device), "xla" the plain torch passes on any device
@@ -75,14 +75,14 @@ import torch
 
 from .. import _precision  # noqa: F401  (float32 matmuls at full precision)
 from ..bvh import build_tlas
-from ..denoise import (diffuse_spatial_filter, reflection_spatial_filter,
-                       temporal_ss)
+from ..denoise import diffuse_spatial_filter, reflection_spatial_filter
 from ..ops.fused import slim_uv, trace_tiles_instanced
 from ..ops.ordering import make_block_order
 from ..ops.scene_wide import (anchor_bits, anchor_ids_scene,
                               build_scene_wide, inverse_rows,
                               refit_scene_wide, trace_scene_wide_fused)
 from ..ops.spatial_cuda import diffuse_pass, reflection_pass
+from ..ops.temporal_cuda import temporal_ss
 from ..ops.traverse_cuda import trace_scene_flat, trace_tiles_flat
 from ..ops.wide import trace_scene4, trace_tiles4
 from ..ops.xform_cuda import instance_xform
@@ -230,8 +230,8 @@ class _Staging:
 def launch_counters():
     """(kernel, wrapper, attribute) of each kernel wrapper's launch
     counter: K1's lean, slim (K1s) and fat (K1f) modes, K1s's epilogue
-    K1e, then K2, K3, K4, K5, and XF, the waves' per-instance
-    transforms."""
+    K1e, then K2, K3, K4, K5, XF, the waves' per-instance transforms,
+    and TS, the TAA."""
     k1 = trace_tiles_instanced
     return (("K1", k1, "launches"), ("K1s", k1, "launches_slim"),
             ("K1f", k1, "launches_fat"), ("K1e", slim_uv, "launches"),
@@ -239,7 +239,8 @@ def launch_counters():
             ("K3", diffuse_pass, "launches"),
             ("K4", trace_tiles_flat, "launches"),
             ("K5", trace_tiles4, "launches"),
-            ("XF", instance_xform, "launches"))
+            ("XF", instance_xform, "launches"),
+            ("TS", temporal_ss, "launches"))
 
 
 def launch_counts() -> dict:

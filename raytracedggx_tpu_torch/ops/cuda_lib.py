@@ -71,6 +71,10 @@ SIGNATURES = {
     # c d affine n out stream
     "rtggx_instance_xform": (_P, _I, _L, _L, _L, _P, _L, _I, _P, _L, _L,
                              _I, _I, _I, _I, _P, _P),
+    # TS: cur c_y c_x c_c hist h_y h_x h_c hist16 vel v_y v_x v_c h w fw fh
+    # row0 out stream
+    "rtggx_temporal_ss": (_P, _L, _L, _L, _P, _L, _L, _L, _I, _P, _L, _L,
+                          _L, _I, _I, _F, _F, _I, _P, _P),
     # stage mark (engine/spans.py): stage stream
     "rtggx_mark": (_I, _P),
     "rtggx_k1_max_stack": (),

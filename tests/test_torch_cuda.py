@@ -739,7 +739,10 @@ def test_step_n_capture_equals_step_loop(cuda, cfg, per_frame):
     that opens the gates (a new capture), at 0.5; the captured frame's
     launches are the path's (K2 twice; K3 twice at metallic 0.5; XF four
     times in the primary wave and in each bounce wave twice on K1's
-    route, once on the per-mesh routes)."""
+    route, once on the per-mesh routes; TS once a frame in the step loop
+    and once in the captured frame)."""
+    from raytracedggx_tpu_torch.ops.temporal_cuda import temporal_ss
+
     r = _cube_renderer(cuda, **cfg)
     assert r.captures
     s_loop = s_chunk = r.init_state()
@@ -748,8 +751,10 @@ def test_step_n_capture_equals_step_loop(cuda, cfg, per_frame):
         if metallic is not None:
             r.set_metallic(0, metallic)
             r.set_metallic(1, metallic)
+        ts0 = temporal_ss.launches
         for _ in range(n):
             s_loop, f_loop, _ = r.step(s_loop, 1 / 30)
+        assert temporal_ss.launches == ts0 + n
         s_chunk, f_chunk = r.step_n(s_chunk, n, 1 / 30)
         _same_frames((s_loop, f_loop), (s_chunk, f_chunk))
         want = n05 if metallic else n1
@@ -757,6 +762,7 @@ def test_step_n_capture_equals_step_loop(cuda, cfg, per_frame):
         assert got[kernel] == want and got["K2"] == 2, got
         assert got["K3"] == (2 if metallic else 0), got
         assert got["XF"] == (xf05 if metallic else xf1), got
+        assert got["TS"] == 1, got
 
 
 def test_step_n_capture_after_set_kernels_xla_launches_no_k2(cuda):
@@ -841,7 +847,7 @@ def _bands_against_renderer(mesh, metallic, cuda):
             torch.cuda.synchronize(dev)
         n1 = launch_counts()
         out.append((state, frame, {k: n1[k] - n0[k]
-                                   for k in ("K1", "K2", "K3", "XF")}))
+                                   for k in ("K1", "K2", "K3", "XF", "TS")}))
     (_, f1, c1), (s2, f2, c2) = out
     assert f2.shape == (128, 128, 3) and f2.device == cuda
     assert float((f1 - f2).abs().max()) < 5e-4
@@ -849,8 +855,8 @@ def _bands_against_renderer(mesh, metallic, cuda):
         b.shape == (32, 128, 4) and b.dtype == torch.float16
         and b.device == torch.device(d)
         for b, d in zip(s2.history, mesh))
-    want = {"K1": 2, "K2": 2, "K3": 0, "XF": 6} if metallic == 1.0 else \
-        {"K1": 3, "K2": 2, "K3": 2, "XF": 8}
+    want = {"K1": 2, "K2": 2, "K3": 0, "XF": 6, "TS": 1} \
+        if metallic == 1.0 else {"K1": 3, "K2": 2, "K3": 2, "XF": 8, "TS": 1}
     assert c1 == {k: 3 * n for k, n in want.items()}
     assert c2 == {k: 4 * n for k, n in c1.items()}
 
@@ -859,7 +865,7 @@ def _bands_against_renderer(mesh, metallic, cuda):
 def test_bands_on_the_card_match_renderer(cuda, metallic):
     """4 row bands of 32 rows on one card (halo 32, the index-order route:
     96 rows) against the single-device frame at 128x128 over 3 frames:
-    within one f16 ulp, the history in 4 f16 bands, and K1, K2 and XF
+    within one f16 ulp, the history in 4 f16 bands, and K1, K2, XF and TS
     (K3 at metallic 0.5) launched 4x per frame."""
     _bands_against_renderer((cuda,) * 4, metallic, cuda)
 
@@ -972,3 +978,117 @@ def test_xform_kernel_has_no_frame_or_spills(cuda):
     rows = [r for name, r in reports.items()
             if "instance_xform_kernel" in name]
     assert len(rows) == 3 and all(r[1:] == (0, 0, 0) for r in rows), rows
+
+
+# TS: the TAA (ops/temporal_cuda.py, csrc/temporal.cu)
+def _ts_inputs(rng, h, w, device, hist_dtype=torch.float16, motion=0.002):
+    """TS's inputs as a frame hands them over (chip_smoke.py:ts_inputs):
+    HDR colour whose alpha, the hit flag, is 1 inside an ellipse and 0
+    outside (cur_a <= 0); velocities of ``motion`` viewports, one pixel in
+    64 thrown up to 1.5 viewports (past every border); a history with
+    counts k / 15; NaN in one history pixel in 4096 and one more (the
+    result's NaN fallback), and in one colour value."""
+    cur = rng.uniform(0.0, 4.0, (h, w, 4)).astype(np.float32)
+    yy, xx = np.mgrid[0:h, 0:w]
+    cur[..., 3] = (((yy - h / 2) / (0.4 * h)) ** 2
+                   + ((xx - w / 2) / (0.4 * w)) ** 2) < 1.0
+    vel = rng.normal(0.0, motion, (h, w, 2)).astype(np.float32)
+    far = rng.random((h, w)) < 1 / 64
+    vel[far] = rng.uniform(-1.5, 1.5, (int(far.sum()), 2))
+    hist = rng.uniform(0.0, 4.0, (h, w, 4)).astype(np.float32)
+    hist[..., 3] = rng.integers(0, 16, (h, w)) / 15.0
+    hist[rng.random((h, w)) < 1 / 4096, 1] = np.nan
+    hist[h // 4, w // 4, 1] = np.nan
+    cur[h // 2, w // 2, 0] = np.nan
+    return (torch.as_tensor(cur, device=device),
+            torch.as_tensor(hist, device=device).to(hist_dtype),
+            torch.as_tensor(vel, device=device))
+
+
+def _ts_same(got, ref):
+    """Bit for bit, a NaN where the other has a NaN."""
+    assert got.shape == ref.shape and got.dtype == ref.dtype == torch.float32
+    same = (got.view(torch.int32) == ref.view(torch.int32)) \
+        | (got.isnan() & ref.isnan())
+    bad = ~same
+    assert not bool(bad.any()), (
+        f"{int(bad.sum())} values differ, max |diff| "
+        f"{float((got - ref).abs()[bad].nan_to_num(0.0).max()):.3e}")
+
+
+@pytest.mark.parametrize("hist_dtype", [torch.float16, torch.float32])
+@pytest.mark.parametrize("hw", [(720, 1280), (2160, 3840), (37, 67)])
+def test_temporal_kernel_matches_plain(cuda, hw, hist_dtype):
+    """TS against its plain version (denoise/temporal.py:temporal_ss),
+    bit for bit, with one launch: reprojections that clamp at every
+    border, pixels with cur_a <= 0; then at rest, where a NaN in a
+    pixel's history takes the NaN fallback (a finite result)."""
+    from raytracedggx_tpu_torch.denoise.temporal import temporal_ss as plain
+    from raytracedggx_tpu_torch.ops.temporal_cuda import temporal_ss
+
+    h, w = hw
+    rng = np.random.default_rng(h + w)
+    cur, hist, vel = _ts_inputs(rng, h, w, cuda, hist_dtype)
+    n0 = temporal_ss.launches
+    got = temporal_ss(cur, hist, vel)
+    ref = plain(cur, hist, vel)
+    torch.cuda.synchronize()
+    assert temporal_ss.launches == n0 + 1
+    assert got.is_contiguous() and got.device == cuda
+    _ts_same(got, ref)
+    ys, xs = torch.meshgrid(torch.arange(h, device=cuda),
+                            torch.arange(w, device=cuda), indexing="ij")
+    qx, qy = xs - vel[..., 0] * w, ys - vel[..., 1] * h
+    assert bool((qx < 0).any() and (qx > w - 1).any() and (qy < 0).any()
+                and (qy > h - 1).any())
+    assert bool((cur[..., 3] <= 0).any() and (cur[..., 3] > 0).any())
+    still = torch.zeros_like(vel)      # each pixel reads its own history
+    ref = plain(cur, hist, still)
+    _ts_same(temporal_ss(cur, hist, still), ref)
+    fallback = hist.isnan().any(-1) & ~ref.isnan().any(-1)
+    assert bool(fallback.any())
+
+
+@pytest.mark.parametrize("row0", [-5, 0, 10])
+def test_temporal_kernel_matches_plain_on_a_band(cuda, row0):
+    """A band of 37 rows of a 47-row image from row ``row0`` (negative:
+    the first band, starting in its halo), its velocity a strided view:
+    bit for bit the plain version."""
+    from raytracedggx_tpu_torch.denoise.temporal import temporal_ss as plain
+    from raytracedggx_tpu_torch.ops.temporal_cuda import temporal_ss
+
+    rng = np.random.default_rng(50 + row0)
+    cur, hist, vel = _ts_inputs(rng, 37, 67, cuda, motion=0.1)
+    vel = torch.cat([vel, vel], dim=-1)[..., 1:3]
+    assert not vel.is_contiguous()
+    got = temporal_ss(cur, hist, vel, full_size=(67, 47), row0=row0)
+    ref = plain(cur, hist, vel, full_size=(67, 47), row0=row0)
+    _ts_same(got, ref)
+
+
+def test_temporal_wrapper_refuses_bad_inputs(cuda):
+    """A CUDA tensor never falls back to the plain version: another
+    device, dtype or shape raises, before any launch."""
+    from raytracedggx_tpu_torch.ops.temporal_cuda import temporal_ss
+
+    cur, hist, vel = _ts_inputs(np.random.default_rng(5), 9, 11, cuda)
+    bad = [(cur, hist.cpu(), vel), (cur, hist, vel.cpu()),
+           (cur.double(), hist, vel), (cur, hist.bfloat16(), vel),
+           (cur, hist, vel.half()), (cur[..., :3], hist, vel),
+           (cur, hist[:-1], vel), (cur, hist, vel[..., :1]),
+           (cur[None], hist, vel)]
+    n0 = temporal_ss.launches
+    for args in bad:
+        with pytest.raises(ValueError):
+            temporal_ss(*args)
+    assert temporal_ss.launches == n0
+
+
+def test_temporal_kernel_has_no_frame_or_spills(cuda):
+    """ptxas gives TS's two instances (f16 and f32 history) no stack frame
+    and no spills."""
+    from raytracedggx_tpu_torch.ops import cuda_lib
+
+    reports = cuda_lib.ptxas_reports(cuda_lib.build()[1])
+    rows = [r for name, r in reports.items() if "temporal_ss_kernel" in name]
+    assert len(rows) == 2 and all(r[1:] == (0, 0, 0) for r in rows), rows
