@@ -40,11 +40,11 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     then 5 at metallic 0.5); then "wide" at kernels="xla" (K1 launched,
     the filters' plain passes), and after set_kernels("auto") K2 again;
     then the knobs: "wide" with trace_slim (K1s in every wave, no lean K1)
-    and with sort_anchor=32, sort_dir_bits=6, paired with the default
-    "wide" frame in one run (3 warm-up, 20 timed frames each in two halves
-    in the order default, slim, anchor, anchor, slim, default, then 5 at
-    metallic 0.5), each frame held against the default frame of the same
-    step at the golden bar (max 0.02, mean 0.002); last, K1f's API path,
+    and with sort_dir_bits=6, paired with the default "wide" frame in one
+    run (3 warm-up, 20 timed frames each in two halves in the order
+    default, slim, dir6, dir6, slim, default, then 5 at metallic 0.5),
+    each frame held against the default frame of the same step at the
+    golden bar (max 0.02, mean 0.002); last, K1f's API path,
     build_scene_wide(lean=False) and trace_scene_wide_fused over the
     frame's two waves;
  5. the golden cube scene at 96x54, 3 frames, against the JAX package's
@@ -60,10 +60,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     full sets with its gate against K1; then K7 and K1 on kbench's
     reflection set from t_min 0, where every ray on which they differ
     beyond the gate must have its nearer t below kbench's t_min (a re-hit
-    of the ray's own start triangle); the bound of each JSON row's lab
-    variant on kbench's two full sets; last, anchorbench's three orders of
-    kbench's reflection set at leaf 8 and 64 (K1 ms, K6a visits per warp,
-    K1's t after un-permutation within kbench's gate);
+    of the ray's own start triangle); last, the bound of each JSON row's
+    lab variant on kbench's two full sets;
  7. the frame loop and the CLI at 1280x720 on the model scene: on
     "wide", "wide" with trace_slim, "pallas4" and "pallas", step_n (one
     frame captured into a CUDA graph and replayed) against a step loop of
@@ -125,7 +123,6 @@ METAL_FRAMES = 10
 PER_MESH_TIMED, PER_MESH_METAL = 20, 5
 KNOB_TIMED, KNOB_METAL = 20, 5      # the knob paths' frames, per path
 FAT_REPS = 10                       # K1f's API path: passes over both waves
-ANCHOR_FRAMES = 5                   # anchorbench's launches per order
 # the launch counters, in the order of every per-frame list below
 COUNTED = ("K1", "K1s", "K1f", "K1e", "K2", "K3", "K4", "K5", "XF",
            "TS")
@@ -898,7 +895,7 @@ def kernels_switch_check(scene, dev, card, frames=3):
 def knob_paths(scene, dev, card, width=W, height=H):
     """The renderer's knobs on "wide" beside the default frame,
     each renderer fresh: 3 warm-up frames each, then KNOB_TIMED frames in
-    two halves in the order default, slim, anchor, anchor, slim, default,
+    two halves in the order default, slim, dir6, dir6, slim, default,
     then KNOB_METAL at metallic 0.5, every block between CUDA events with
     the launch counts set to 0 just before and read just after.  Every
     frame is held against the default frame of the same step at the
@@ -913,10 +910,9 @@ def knob_paths(scene, dev, card, width=W, height=H):
         "trace_slim": (RenderConfig(trace_slim=True, **size),
                        [0, 2, 0, 2, 2, 0, 0, 0, 6, 1],
                        [0, 3, 0, 3, 2, 2, 0, 0, 8, 1]),
-        "sort_anchor": (RenderConfig(sort_anchor=32, sort_dir_bits=6,
-                                     **size),
-                        [2, 0, 0, 0, 2, 0, 0, 0, 6, 1],
-                        [3, 0, 0, 0, 2, 2, 0, 0, 8, 1]),
+        "sort_dir_bits": (RenderConfig(sort_dir_bits=6, **size),
+                          [2, 0, 0, 0, 2, 0, 0, 0, 6, 1],
+                          [3, 0, 0, 0, 2, 2, 0, 0, 8, 1]),
     }
     rs, states, frames, ms = {}, {}, {}, {}
     launches = {k: [0] * len(COUNTED) for k in paths}
@@ -1153,7 +1149,7 @@ def lab_bound(bench, kw, o, d, t_max, t_min):
 
 def kernel_lab(dev, rng, card):
     """Phase 6.  Returns ({K6a, K6b, K7: row of the JSON line}, launches
-    of K6a, K6b and K7 over kbench's run, kbench's Bench)."""
+    of K6a, K6b and K7 over kbench's run)."""
     from raytracedggx_tpu_torch.ops.lab.fused_lab import (ls_stack_bound,
                                                           stack_bound)
     from raytracedggx_tpu_torch.scripts.kbench import (T_MIN_REFL,
@@ -1218,23 +1214,7 @@ def kernel_lab(dev, rng, card):
                                            t_max, t_min)
             print(f"  {k} {name} on the full {label} set: bound "
                   f"{bound_ms:.6f} ms ({bound_by})")
-    return rows, counts, bench
-
-
-def anchor_check(bench, card):
-    """anchorbench's run on kbench's reflection set (leaf 8 and 64, three
-    orders, ANCHOR_FRAMES launches each): K1's t after un-permutation
-    within kbench's gate of the base order's."""
-    from raytracedggx_tpu_torch.scripts import anchorbench, kbench
-
-    res = anchorbench.run(bench, ANCHOR_FRAMES, 32)
-    worst = max(r["parity"] for v in res.values()
-                for r in v["orders"].values())
-    check(worst <= kbench.PARITY_BAR, f"anchorbench: K1's t in every order "
-          f"after un-permutation within {kbench.PARITY_BAR:g} of the base "
-          f"order's (max |dt| {worst:.3e}; {card})")
-    print(json.dumps({"anchorbench": res}))
-    return res
+    return rows, counts
 
 
 def t_min_zero_check(bench, name):
@@ -1865,9 +1845,8 @@ def main():
         golden_check(dev, trav, ndc_fmt=True)
 
     print("== phase 6: kernel lab")
-    lab_rows, lab_counts, bench = kernel_lab(dev, rng, card)
+    lab_rows, lab_counts = kernel_lab(dev, rng, card)
     res.update(lab_rows)
-    anchor_check(bench, card)
 
     print("== phase 7: frame loop and CLI")
     timing = frame_loop(renderer, per_mesh, dev, card)

@@ -42,8 +42,7 @@ of the run, the peak device memory and the card with its power limit.
 
 Env knobs (the reference's): RTGGX_BENCH_RES (default 1280x720, config
 0), RTGGX_BENCH_FRAMES, RTGGX_BENCH_TIMEOUT (s), RTGGX_BENCH_TRAVERSAL,
-RTGGX_BENCH_CONFIG (0-6, ``CONFIGS``), RTGGX_BENCH_ANCHOR (sort_anchor,
-an A/B knob); and RTGGX_BENCH_DEVICE.
+RTGGX_BENCH_CONFIG (0-6, ``CONFIGS``); and RTGGX_BENCH_DEVICE.
 """
 
 import json
@@ -168,7 +167,6 @@ def _run_config(cfg_id: int, model_path=None):
     """Measure one config; returns the JSON record.  model_path: an OBJ
     to load in place of the asset or the stand-in."""
     import torch
-    from dataclasses import replace
 
     from .engine import RenderConfig, Renderer
     from .engine.renderer import launch_counters, launch_counts
@@ -212,9 +210,6 @@ def _run_config(cfg_id: int, model_path=None):
                 width=w, height=h, spatial=c["spatial"],
                 temporal=c["temporal"], kernels=kernels,
                 traversal=os.environ.get("RTGGX_BENCH_TRAVERSAL", "auto"))
-            if "RTGGX_BENCH_ANCHOR" in os.environ:   # A/B control knob
-                cfg = replace(cfg, sort_anchor=int(
-                    os.environ["RTGGX_BENCH_ANCHOR"]))
             r = Renderer(scene, env=env, config=cfg, device=dev)
             if c.get("metallic") is not None:
                 for mesh_idx in (0, 1):

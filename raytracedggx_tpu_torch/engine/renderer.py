@@ -51,15 +51,14 @@ requires a CUDA device), "xla" the plain torch passes on any device
 it between frames.  ``emulate_formats`` round-trips the G-buffers and
 the denoiser's targets through the reference's storage formats.  The
 reference's off-by-default knobs keep its names and defaults:
-``trace_slim`` (K1's slim mode, K1s, in every wave) and ``sort_anchor``
-(an anchor cut of that many boxes per mesh, whose per-ray id joins the
-bounce sort key) act on "wide" only and raise ValueError on any other
-traversal; ``sort_dir_bits`` (3 or 6) and the ``dbg_*`` ablations go to
-``ray_trace_pass``.  The row-band renderer (parallel/sharded.py) runs
-this frame per band through the hooks ``_trace(row0=, band_height=)``
-and ``_post_process(valid=, full_size=, row0=)``.  The reference's
-VMEM-budget fallback from "wide" to per-mesh launches is a TPU residency
-limit and is dropped.
+``trace_slim`` (K1's slim mode, K1s, in every wave) acts on "wide" only
+and raises ValueError on any other traversal; ``sort_dir_bits`` (3 or 6)
+goes to ``ray_trace_pass``.  The reference's anchor sort key and its
+profiling ablations are not ported (trace/raygen.py).  The row-band
+renderer (parallel/sharded.py) runs this frame per band through the
+hooks ``_trace(row0=, band_height=)`` and ``_post_process(valid=,
+full_size=, row0=)``.  The reference's VMEM-budget fallback from "wide"
+to per-mesh launches is a TPU residency limit and is dropped.
 """
 
 from __future__ import annotations
@@ -78,8 +77,7 @@ from ..bvh import build_tlas
 from ..denoise import diffuse_spatial_filter, reflection_spatial_filter
 from ..ops.fused import slim_uv, trace_tiles_instanced
 from ..ops.ordering import make_block_order
-from ..ops.scene_wide import (anchor_bits, anchor_ids_scene,
-                              build_scene_wide, inverse_rows,
+from ..ops.scene_wide import (build_scene_wide, inverse_rows,
                               refit_scene_wide, trace_scene_wide_fused)
 from ..ops.spatial_cuda import diffuse_pass, reflection_pass
 from ..ops.temporal_cuda import temporal_ss
@@ -129,15 +127,8 @@ class RenderConfig:
                                     # waves (kernel traversals only)
     sort_dir_bits: int = 3          # direction-class bits of that key (3 =
                                     # octant; 6 = ~30 degree cones)
-    sort_anchor: int = 0            # "wide": a ~K-box cut per mesh whose
-                                    # nearest-entry id joins the key after
-                                    # the direction class (0: off)
     trace_slim: bool = False        # "wide": K1's slim mode (t, slot, inst;
                                     # u, v recomputed after the kernel)
-    dbg_no_refl_trace: bool = False       # ablations of the reflection
-    dbg_no_secondary_shade: bool = False  # wave (trace/raygen.py)
-    dbg_env_mode: str = "full"            # "no_env" | "bilinear"
-    dbg_miss_lod: float = 0.0             # env LOD of its misses
     async_compute: bool = False     # 'A' toggle: step's refit on a second
                                     # CUDA stream (same output; no effect
                                     # on the CPU or on step_n)
@@ -260,9 +251,8 @@ class Renderer:
         self.traversal = "wide" if cfg.traversal == "auto" else cfg.traversal
         if self.traversal not in ("wide", "pallas4", "pallas", "jax"):
             raise ValueError(f"traversal={cfg.traversal!r}")
-        if self.traversal != "wide" and (cfg.trace_slim or cfg.sort_anchor):
-            raise ValueError("trace_slim and sort_anchor need "
-                             "traversal='wide'")
+        if self.traversal != "wide" and cfg.trace_slim:
+            raise ValueError("trace_slim needs traversal='wide'")
         if cfg.sort_dir_bits not in (3, 6):
             raise ValueError(f"sort_dir_bits={cfg.sort_dir_bits!r}")
         self.kernels = None
@@ -273,16 +263,13 @@ class Renderer:
         self.env = env if env is not None else procedural_env(64, dev)
         self.geom = upload_scene(scene, dev, traversal=self.traversal,
                                  leaf_size=cfg.leaf_size)
-        self.swide, self._anchor_bits, self._k1_stats = None, 0, None
+        self.swide, self._k1_stats = None, None
         if self.traversal == "wide":
             # K1's counters, made before any frame is captured
             self._k1_stats = spans.k1_stats(dev)
             self.swide = build_scene_wide(self.geom, scene.mesh_ids,
                                           leaf_size=cfg.wide_leaf_size,
-                                          device=dev,
-                                          anchor_cut=cfg.sort_anchor)
-            if cfg.sort_anchor:
-                self._anchor_bits = anchor_bits(self.swide)
+                                          device=dev)
         # screen-block order for the kernel traversals (warp coherence)
         self.ray_order = None
         if self.traversal != "jax":
@@ -412,11 +399,6 @@ class Renderer:
                               sort_secondary=(cfg.sort_secondary
                                               and self.traversal != "jax"),
                               sort_dir_bits=cfg.sort_dir_bits,
-                              dbg_no_refl_trace=cfg.dbg_no_refl_trace,
-                              dbg_no_secondary_shade=(
-                                  cfg.dbg_no_secondary_shade),
-                              dbg_env_mode=cfg.dbg_env_mode,
-                              dbg_miss_lod=cfg.dbg_miss_lod,
                               diffuse=diffuse,
                               mark=functools.partial(spans.mark,
                                                      device=self.device),
@@ -492,11 +474,10 @@ class Renderer:
 
     def _tracer(self, sw):
         """The frame's traversal: trace_fused (K1, or K1s with trace_slim,
-        over the refitted scene BVH sw, with the anchor ids of
-        sort_anchor) or trace_fn (per-mesh, in each instance's object
-        space).  The fused trace numbers its calls, the frame's waves in
-        order, and adds each wave's K1 work to its row of ``spans``'
-        counters."""
+        over the refitted scene BVH sw) or trace_fn (per-mesh, in each
+        instance's object space).  The fused trace numbers its calls, the
+        frame's waves in order, and adds each wave's K1 work to its row of
+        ``spans``' counters."""
         if self.traversal == "wide":
             hook, slim = self.trace_hook, self.config.trace_slim
             rows = iter(self._k1_stats)
@@ -506,11 +487,7 @@ class Renderer:
                     hook(sw, o, d, t_min, t_max)
                 return trace_scene_wide_fused(sw, o, d, t_min, t_max,
                                               slim=slim, stats=next(rows))
-            out = dict(trace_fused=trace)
-            if self._anchor_bits:
-                out.update(anchor_fn=lambda o, d: anchor_ids_scene(sw, o, d),
-                           anchor_bits=self._anchor_bits)
-            return out
+            return dict(trace_fused=trace)
         if self.traversal == "jax":
             return dict(trace_fn=default_tracer(self.geom))
         geom = self.geom

@@ -4,11 +4,10 @@ Torch port of raytracedggx_tpu/ops/traverse_pallas.py:266-396
 (``block_order``, ``BlockOrder``, ``make_block_order`` and
 ``sort_rays_morton``).  With one ray per thread (kernel K1) an ordering
 changes no output, only which rays share a warp: screen blocks for the
-primary wave, dead | direction class | [anchor] | origin Morton for
-bounces.  The sort is ``torch.sort(stable=True)`` on an int64 key, and
-the inverse permutation is a scatter (``inv[order] = arange``) instead of
-the reference's argsort of the permutation (a TPU sort-vs-scatter
-trade).
+primary wave, dead | direction class | origin Morton for bounces.  The
+sort is ``torch.sort(stable=True)`` on an int64 key, and the inverse
+permutation is a scatter (``inv[order] = arange``) instead of the
+reference's argsort of the permutation (a TPU sort-vs-scatter trade).
 """
 
 from __future__ import annotations
@@ -69,14 +68,13 @@ def make_block_order(width: int, height: int, device=None):
 
 
 def sort_rays_morton(ray_o, ray_d, scene_lo, scene_hi, active=None,
-                     dir_bits: int = 3, anchor=None, anchor_bits: int = 0):
+                     dir_bits: int = 3):
     """(order, inverse) for an incoherent bounce wave, from the
     reference's single 32-bit key (traverse_pallas.py:326-380), held in
     int64 bit for bit, so the order is the reference's: the dead bit 31,
     then the direction class (``dir_bits`` 3: the octant; 6: the octant
-    and the axis-magnitude order, ~30 degree cones), then, with an
-    ``anchor`` (per-ray subtree id, ops/scene_wide.anchor_ids_scene) of
-    ``anchor_bits``, the anchor, then the Morton code's leading bits."""
+    and the axis-magnitude order, ~30 degree cones), then the Morton
+    code's leading bits."""
     if dir_bits not in (3, 6):
         raise ValueError(f"dir_bits must be 3 or 6, got {dir_bits}")
     dclass = ((ray_d[:, 0] >= 0).to(torch.int64)
@@ -88,13 +86,7 @@ def sort_rays_morton(ray_o, ray_d, scene_lo, scene_hi, active=None,
                   | ((ay > az).to(torch.int64) << 4)
                   | ((ax > ay).to(torch.int64) << 5))
     code = morton3d(ray_o, scene_lo, scene_hi)
-    key = dclass << (31 - dir_bits)
-    if anchor is not None and anchor_bits:
-        ab = anchor_bits
-        key = (key | (anchor.to(torch.int64) << (31 - dir_bits - ab))
-               | (code >> (dir_bits - 1 + ab)))
-    else:
-        key = key | (code >> (dir_bits - 1))
+    key = (dclass << (31 - dir_bits)) | (code >> (dir_bits - 1))
     key = key & 0xFFFFFFFF                   # the reference's uint32 wrap
     if active is not None:
         key = torch.where(active, key, key | (1 << 31))

@@ -9,8 +9,6 @@ transforms each ray by the tag's inverse world on a tag change.
 (the default), slim (``slim=True``: the kernel keeps only t, slot and
 inst, and kernel K1e recomputes u, v from the slot) and fat (a tree built
 with ``lean=False``: the kernel interpolates the normal and takes prim).
-The anchor cut (``anchor_cut``) and ``anchor_ids_scene`` give the bounce
-sort its per-ray subtree id (ops/ordering.sort_rays_morton).
 
 Re-laid out for the GPU: the reference's lane-tiled (Nt, 36, 128) node
 columns become (N, 36) rows, and its (Lt, 9L, 128) leaf columns become
@@ -62,11 +60,6 @@ class SceneWideBVH(NamedTuple):
     k1_stack: int               # K1's bound: near-first DFS, 3 * depth + 1
     depth: int                  # nodes on the longest root-to-leaf path
     lean: bool = True           # False: trace_scene_wide_fused runs K1f
-    # the anchor cut: a ~K-box object-space cut of each mesh's subtree,
-    # per instance, padded to the largest cut (pads lo = 3e38, hi = -3e38)
-    anchor_boxes: torch.Tensor = None   # (I, K, 6) f32, or None
-    anchor_base: tuple = ()     # per instance its first anchor id; [-1]
-    #                             the total
 
 
 def _instance_tree(num_inst: int):
@@ -177,65 +170,15 @@ def _mesh_tree(host_mesh, L, builder):
     raise ValueError(f"builder must be 'sah' or 'lbvh', got {builder!r}")
 
 
-def _mesh_cut(recs, k_cut: int):
-    """BFS a mesh subtree's records from its root into a ~k_cut-node
-    frontier of object-space AABBs (the anchor cut).  recs[r] = 4 child
-    dicts with kind (0 pad / 1 leaf / 2 internal), a, lo, hi.  The
-    reference's ``_mesh_cut``, over build_records4_padded's records."""
-    frontier = [0]
-    boxes = []
-    while frontier and len(frontier) + len(boxes) < k_cut:
-        n = frontier.pop(0)
-        kids = []
-        for c in recs[n]:
-            if c["kind"] == 2:
-                kids.append(c["a"])
-            elif c["kind"] == 1:
-                boxes.append(np.concatenate([c["lo"], c["hi"]]))
-        frontier.extend(kids)
-    for n in frontier:
-        live = [c for c in recs[n] if c["kind"] > 0]
-        lo = np.min([c["lo"] for c in live], axis=0)
-        hi = np.max([c["hi"] for c in live], axis=0)
-        boxes.append(np.concatenate([lo, hi]))
-    return np.asarray(boxes, np.float32)
-
-
-def _anchor_cut(mesh_recs, mesh_ids, anchor_cut: int):
-    """(anchor_boxes (I, K, 6), anchor_base): one object-space cut per
-    unique mesh, instanced per instance with cumulative id bases; each
-    cut has at most k_eff = max(4, min(anchor_cut, 256 // I)) boxes, as
-    in the reference (scene_wide.py:286-306), and instances with a
-    smaller cut are padded with empty boxes up to the largest."""
-    num_inst = len(mesh_ids)
-    k_eff = max(4, min(anchor_cut, 256 // num_inst))
-    cuts = {m: _mesh_cut(mesh_recs[m][0], k_eff) for m in set(mesh_ids)}
-    k_max = max(c.shape[0] for c in cuts.values())
-    per_inst = np.empty((num_inst, k_max, 6), np.float32)
-    per_inst[:, :, 0:3] = BIG
-    per_inst[:, :, 3:6] = -BIG
-    base, bases = 0, []
-    for i, m in enumerate(mesh_ids):
-        c = cuts[m]
-        per_inst[i, :c.shape[0]] = c
-        bases.append(base)
-        base += c.shape[0]
-    bases.append(base)                     # [-1] = total anchors
-    return per_inst, tuple(bases)
-
-
 def build_scene_wide(geom, mesh_ids, leaf_size: int = 16, worlds=None,
-                     device=None, builder: str = "sah", lean: bool = True,
-                     anchor_cut: int = 32) -> SceneWideBVH:
+                     device=None, builder: str = "sah", lean: bool = True
+                     ) -> SceneWideBVH:
     """geom: trace.geometry.SceneGeometry; mesh_ids: instance -> mesh.
     Host build of all topology and object-space geometry (binned-SAH or
     LBVH subtrees, 4-wide collapse with padded L-slot leaves), then a
     refit at ``worlds`` (identity by default).  lean=False marks the tree
-    for K1's fat mode (and gives it ``attrs4``); anchor_cut > 0 builds the
-    anchor cut (0: none).  Defaults are the reference's; the cut they
-    build is small (at most max(4, 256 // I) boxes per instance, 24 bytes
-    each, from records the build holds anyway), and the renderer passes
-    its own ``anchor_cut``, 0 unless ``sort_anchor`` is set."""
+    for K1's fat mode (and gives it ``attrs4``).  Defaults are the
+    reference's."""
     L = leaf_size
     num_inst = len(mesh_ids)
     assert num_inst < (1 << 11), "instance tag field is 11 bits"
@@ -311,26 +254,19 @@ def build_scene_wide(geom, mesh_ids, leaf_size: int = 16, worlds=None,
     # (kind-3 edges jump from top nodes to mesh roots, larger indices)
     stack = max(128, 6 * tree_depth(kind, a_col) + 16)
 
-    sw = _assemble(np.concatenate(tris), np.concatenate(attrs), kind,
-                   a_col, b_col, boxes, n_top, top_children, num_inst, L,
-                   stack, worlds, device, lean)
-    if anchor_cut:
-        a_boxes, a_base = _anchor_cut(mesh_recs, mesh_ids, anchor_cut)
-        sw = sw._replace(anchor_boxes=torch.as_tensor(a_boxes, device=device),
-                         anchor_base=a_base)
-    return sw
+    return _assemble(np.concatenate(tris), np.concatenate(attrs), kind,
+                     a_col, b_col, boxes, n_top, top_children, num_inst, L,
+                     stack, worlds, device, lean)
 
 
 def from_reference_arrays(nodes, tris, inv_mats, attrs, leaf_size, stack,
-                          n_top, top_children, device=None,
-                          anchor_boxes=None, anchor_base=()) -> SceneWideBVH:
+                          n_top, top_children, device=None) -> SceneWideBVH:
     """The port's structure from the reference SceneWideBVH's arrays as
     numpy: nodes (Nt, 36, 128), tris (Lt, 9L, 128), inv_mats (1+I, 12),
     attrs (S, >=10); or, for a tree the reference built with lean=False,
     attrs None and tris (Lt, 19L, 128) fat columns [geometry 9L | object
     normals 9L | prim L], whose normals and prim become the attrs rows
-    and which is marked lean=False.  The anchor cut is carried as given.
-    The BVH is carried across unchanged, so both sides trace the
+    and which is marked lean=False.  The BVH is carried across unchanged, so both sides trace the
     identical tree."""
     L = int(leaf_size)
     rows = np.array(nodes, np.float32).transpose(0, 2, 1).reshape(-1, 36)
@@ -353,13 +289,8 @@ def from_reference_arrays(nodes, tris, inv_mats, attrs, leaf_size, stack,
                                 cols[:, 18 * L:].reshape(-1, 1)], axis=1)
     sw = _assemble(slots, attrs, kind, a_col, b_col, rows[:, :24], n_top,
                    top_children, num_inst, L, stack, None, device, lean)
-    if anchor_boxes is not None:
-        anchor_boxes = torch.as_tensor(np.array(anchor_boxes, np.float32),
-                                       device=device)
     return sw._replace(nodes=torch.as_tensor(rows, device=device),
-                       inv_mats=torch.as_tensor(inv_mats, device=device),
-                       anchor_boxes=anchor_boxes,
-                       anchor_base=tuple(int(b) for b in anchor_base))
+                       inv_mats=torch.as_tensor(inv_mats, device=device))
 
 
 def inverse_rows(worlds):
@@ -406,53 +337,6 @@ def refit_scene_wide(sw: SceneWideBVH, worlds, inv_mats=None
     if inv_mats is None:
         inv_mats = inverse_rows(worlds)
     return sw._replace(nodes=nodes, inv_mats=inv_mats)
-
-
-def anchor_ids_scene(sw: SceneWideBVH, ray_o, ray_d):
-    """Nearest-entry anchor id per WORLD-space ray over the per-instance
-    object-space cuts (slab tests through the refit inverse worlds, so
-    animation keeps anchors correct); int64, 0 for a ray that enters no
-    cut box (dead and sky rays: the dead bit leads the sort anyway).
-
-    The reference's anchor_ids_scene (scene_wide.py:387-420) with its
-    padded boxes masked: an instance whose mesh has a smaller cut than the
-    largest is padded with lo = 3e38, hi = -3e38, which passes the
-    reference's slab test at t = 0 for every ray, so there the first such
-    pad wins; here a pad never wins, and the id is the nearest REAL box's.
-    Everything else is the reference's: id 0 is shared by misses and
-    instance 0's first box, t is clamped to 0 from below, of equal t the
-    earlier instance and then the lower box wins."""
-    boxes = sw.anchor_boxes
-    n_inst, K, _ = boxes.shape
-    R = ray_o.shape[0]
-    best_t = torch.full((R,), float("inf"), device=ray_o.device)
-    best_id = torch.zeros(R, dtype=torch.int64, device=ray_o.device)
-    j_all = torch.arange(K, device=ray_o.device)
-    for i in range(n_inst):
-        m = sw.inv_mats[i + 1]
-        oo = ray_o @ m[:9].reshape(3, 3) + m[9:]
-        dd = ray_d @ m[:9].reshape(3, 3)
-        inv = 1.0 / torch.where(dd.abs() < 1e-20, 1e-20, dd)
-        cut = boxes[i]
-        a = (cut[None, :, 0:3] - oo[:, None]) * inv[:, None]     # (R, K, 3)
-        b = (cut[None, :, 3:6] - oo[:, None]) * inv[:, None]
-        tn = torch.minimum(a, b).amax(dim=-1)
-        tf = torch.maximum(a, b).amin(dim=-1)
-        real = j_all < sw.anchor_base[i + 1] - sw.anchor_base[i]
-        ok = (tn <= tf) & (tf >= 0.0) & real
-        tn = torch.where(ok, torch.clamp(tn, min=0.0), float("inf"))
-        j = tn.argmin(dim=1)                       # the first of equal t
-        tn_b = tn.gather(1, j[:, None])[:, 0]
-        upd = tn_b < best_t
-        best_t = torch.where(upd, tn_b, best_t)
-        best_id = torch.where(upd, sw.anchor_base[i] + j, best_id)
-    return best_id
-
-
-def anchor_bits(sw: SceneWideBVH) -> int:
-    """Key bits needed for the scene's anchor ids."""
-    total = sw.anchor_base[-1] if sw.anchor_base else 0
-    return max(1, int(np.ceil(np.log2(max(total, 2))))) if total else 0
 
 
 def trace_scene_wide_fused(sw: SceneWideBVH, ray_o, ray_d, t_min, t_max,

@@ -142,15 +142,11 @@ def _mix4(q, fx, fy):
             + q[..., 6:9] * (1 - fx) * fy + q[..., 9:12] * fx * fy)
 
 
-def _bilinear(env: EnvMap, mip, face, u, v):
-    """Bilinear sample of one mip level, a python int or a per-lane int64
-    tensor: one gather of the texel's edge-clamped 2x2 footprint row."""
-    if torch.is_tensor(mip):
-        s, off = env.sizes[mip], env.offsets[mip]
-        sf = s.to(torch.float32)
-    else:
-        s, off = env.sizes_host[mip], env.offsets_host[mip]
-        sf = u.new_full((), float(s))
+def _bilinear(env: EnvMap, mip: int, face, u, v):
+    """Bilinear sample of one mip level: one gather of the texel's
+    edge-clamped 2x2 footprint row."""
+    s, off = env.sizes_host[mip], env.offsets_host[mip]
+    sf = u.new_full((), float(s))
     x0, y0, fx, fy = _texel(u, v, sf)
     idx = off + (face * s + y0.to(torch.int64)) * s + x0.to(torch.int64)
     return _mix4(env.quad[idx], fx, fy)

@@ -35,17 +35,13 @@ Dropped TPU workarounds that change no output:
   reflection wave already sampled; tests/test_torch_frame_loop.py).  The
   reference gates only the fused route; the port gates both.
 
-The reference's off-by-default knobs, with its names and defaults:
-``sort_dir_bits`` (3 or 6 direction-class bits in the bounce sort key),
-``anchor_fn`` / ``anchor_bits`` (each bounce ray's subtree id joins the
-key), and the profiling ablations of the reflection wave:
-``dbg_no_refl_trace`` (t_max all -1), ``dbg_no_secondary_shade`` (hit
-radiance 0), ``dbg_env_mode`` ("no_env": env radiance 0.5 in the hit
-shading, "bilinear": the floor mip only) and ``dbg_miss_lod`` (the env
-LOD of its misses, every sky pixel's among them).  As in the reference,
-the second and third act on the ``trace_fused`` route only, and the
-diffuse wave's misses stay at LOD 0 (the reference's unbucketed path;
-its bucketed prefix, dropped above, gave dead lanes ``dbg_miss_lod``).
+``sort_dir_bits`` keeps the reference's name and default: 3 or 6
+direction-class bits in the bounce sort key.  Not ported: the
+reference's anchor key (each bounce ray's BVH-cut subtree id in the
+key; on an H100 computing it cost more than it saved in K1) and its
+profiling ablations of the reflection wave (the stage marks of
+``engine.spans`` attribute the frame's time on the card).  Every miss
+samples the env at LOD 0.
 """
 
 from __future__ import annotations
@@ -59,7 +55,7 @@ from ..ops.xform_cuda import instance_xform
 from ..sh import evaluate_sh_irradiance
 from ..utils.math3d import const, reflect, saturate
 from .brdf import PI, env_brdf_approx, f_schlick, vis_smith
-from .env import EnvMap, _bilinear, dir_to_face_uv, sample_env
+from .env import EnvMap, sample_env
 from .geometry import fetch_vertices, interp_attribs, interp_from_vertices
 from .sampling import cos_dir, ggx_dir, sample_param
 from .shade import get_base_color, get_rough_metal, get_uv, take_small
@@ -149,17 +145,14 @@ def _trace_ordered_fused(trace_fused, o, d, t_min, t_max, ray_order):
     return rec, fl[:, 3:6]
 
 
-def _trace_shade_ordered_fused(trace_fused, shade_fn, env, o, d, t_min,
-                               t_max, ray_order, miss_lod=0.0):
+def _trace_shade_ordered_fused(trace_fused, shade_fn, o, d, t_min, t_max,
+                               ray_order):
     """Trace AND shade in the sorted ray domain (neighbouring rays tap
     neighbouring env texels), un-permuting only the radiance.  The miss
-    radiance rides the shading's env tap, or, where shade_fn returns
-    none (the dbg_* ablations), is env(d) at ``miss_lod``.  Returns
-    (radiance (R, 3), secondary hit (R,)) in original ray order."""
+    radiance rides the shading's env tap.  Returns (radiance (R, 3),
+    secondary hit (R,)) in original ray order."""
     def shade(rec, nrm, o, d):
         shaded, env_tap = shade_fn(rec, nrm, o, d)
-        if env_tap is None:
-            env_tap = sample_env(env, d, miss_lod)
         return torch.where(rec.hit[..., None], shaded, env_tap)
 
     if ray_order is None:
@@ -187,13 +180,11 @@ def _mip_level(env: EnvMap, rough):
 
 
 def _spec_env_shade(env: EnvMap, n, v, rough, color, metal, miss_dir=None,
-                    hit=None, miss_lod=0.0, dbg_mode="full"):
+                    hit=None):
     """computeReflection at the recursion limit (RayTracing.hlsl:442-481).
     With miss_dir the env tap serves double duty: hit lanes sample the
-    roughness-filtered spec direction, miss lanes (miss_dir, miss_lod).
-    dbg_mode (profiling ablation only): "no_env" takes 0.5 for the env
-    radiance, "bilinear" samples the floor mip only; neither taps for the
-    misses.  Returns (spec, env_tap), env_tap None without a miss tap."""
+    roughness-filtered spec direction, miss lanes miss_dir at LOD 0.
+    Returns (spec, env_tap), env_tap None without miss_dir."""
     a = rough * rough
     r = reflect(-v, n)
     k = ((1.0 - a) * (torch.sqrt(torch.clamp(1.0 - a, min=0.0)) + a))[..., None]
@@ -201,18 +192,12 @@ def _spec_env_shade(env: EnvMap, n, v, rough, color, metal, miss_dir=None,
     nol = torch.sum(n * d, dim=-1)
     nov = saturate(torch.sum(n * v, dim=-1))
     env_tap = None
-    if dbg_mode == "no_env":
-        rad = torch.full_like(d, 0.5)
-    elif dbg_mode == "bilinear":
-        lvl = torch.clamp(_mip_level(env, rough), 0.0, env.num_mips - 1.0)
-        face, uu, vv = dir_to_face_uv(d)
-        rad = _bilinear(env, torch.floor(lvl).to(torch.int64), face, uu, vv)
-    elif miss_dir is None:
+    if miss_dir is None:
         rad = sample_env(env, d, _mip_level(env, rough))
     else:
         tap_d = torch.where(hit[..., None], d, miss_dir)
         tap_l = torch.where(hit, _mip_level(env, rough),
-                            torch.full_like(rough, float(miss_lod)))
+                            torch.zeros_like(rough))
         env_tap = rad = sample_env(env, tap_d, tap_l)
     rad = torch.where((nol > 0.0)[..., None], rad, 0.0)
     f0 = 0.04 * (1.0 - metal[..., None]) + color * metal[..., None]
@@ -221,16 +206,14 @@ def _spec_env_shade(env: EnvMap, n, v, rough, color, metal, miss_dir=None,
 
 def _shade_secondary(consts, mats, env, sh_coeffs, rec, ray_dir,
                      damp_diffuse_albedo, fused_n=None, ray_o=None,
-                     geom=None, mesh_ids=None, miss_lod=0.0,
-                     dbg_env_mode="full"):
+                     geom=None, mesh_ids=None):
     """Closest-hit shading of depth-1 rays (closestHitReflection /
     closestHitDiffuse, RayTracing.hlsl:570-614): metallic > 0.5 takes the
     env-specular route, else SH diffuse (albedo damped by 1 - metallic on
     the diffuse wave).  fused_n: the OBJECT-space interpolated normal from
     K1, the hit point on the ray, and the env tap doubles as the miss
     radiance; without it the attributes come from the hit triangle's
-    vertices (geom, mesh_ids).  miss_lod and dbg_env_mode go to
-    ``_spec_env_shade``.  Returns (shaded, env_tap or None)."""
+    vertices (geom, mesh_ids).  Returns (shaded, env_tap or None)."""
     if fused_n is not None:
         p_world = ray_o + rec.t[..., None] * ray_dir
         pos_obj = world_to_object(consts, rec.inst, p_world)
@@ -245,8 +228,7 @@ def _shade_secondary(consts, mats, env, sh_coeffs, rec, ray_dir,
     color = get_base_color(mats.base_colors, rec.inst)[..., :3]
     spec, env_tap = _spec_env_shade(
         env, n, v, rough, color, metal,
-        miss_dir=ray_dir if fused_n is not None else None, hit=rec.hit,
-        miss_lod=miss_lod, dbg_mode=dbg_env_mode)
+        miss_dir=ray_dir if fused_n is not None else None, hit=rec.hit)
     albedo = color * (1.0 - metal[..., None]) if damp_diffuse_albedo \
         else color
     diff = evaluate_sh_irradiance(sh_coeffs, n) / PI * albedo
@@ -402,9 +384,7 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
                    trace_fused=None, ray_order=None,
                    bary_mode: str = "direct", trace_fn=None, geom=None,
                    sort_secondary: bool = True, sort_dir_bits: int = 3,
-                   anchor_fn=None, anchor_bits: int = 0,
-                   dbg_no_refl_trace=False, dbg_no_secondary_shade=False,
-                   dbg_env_mode="full", dbg_miss_lod=0.0, diffuse=None,
+                   diffuse=None,
                    row0: int = 0, band_height: int | None = None,
                    mark=None):
     """Full DispatchRays equivalent.  Returns a dict of (H, W, C) images:
@@ -417,9 +397,8 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
     trace_fused (K1) or trace_fn(tlas, o, d, t_min, t_max) -> HitRecord;
     with neither, the plain wavefront traversal over geom's LBVHs.
     ray_order: screen-block order of the primary wave; sort_secondary:
-    dead | direction class (sort_dir_bits) | anchor | Morton order for
-    the bounce waves (else ray_order), the anchor anchor_fn(o, d) of
-    anchor_bits when both are given.  dbg_*: the module docstring.
+    dead | direction class (sort_dir_bits) | Morton order for the bounce
+    waves (else ray_order).
     diffuse: run the diffuse wave (the host's gate, module docstring);
     None decides it from ``mats.rough_metals``, a read of the device
     tensor (the renderer passes its own decision).  mark(stage) is called
@@ -427,8 +406,6 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
     begin (``engine.spans.mark``); None marks nothing."""
     if bary_mode not in ("direct", "ndc"):
         raise NotImplementedError(f"bary_mode={bary_mode!r}")
-    if dbg_env_mode not in ("full", "no_env", "bilinear"):
-        raise ValueError(f"dbg_env_mode={dbg_env_mode!r}")
     if mark is None:
         def mark(stage):
             pass
@@ -449,32 +426,21 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
     lo = tlas.aabb_min.amin(dim=0)
     hi = tlas.aabb_max.amax(dim=0)
 
-    def secondary_order(dirs, tmax):
-        aid = (anchor_fn(p, dirs)
-               if anchor_fn is not None and anchor_bits else None)
-        return sort_rays_morton(p, dirs, lo, hi, active=tmax > 0,
-                                dir_bits=sort_dir_bits, anchor=aid,
-                                anchor_bits=anchor_bits)
-
-    def wave(dirs, tmax, damp_diffuse_albedo, miss_lod=0.0,
-             env_mode="full", no_shade=False):
+    def wave(dirs, tmax, damp_diffuse_albedo):
         """(radiance, secondary hit) of a bounce wave.  On the trace_fn
         route the radiance is the hit shading on every lane (the caller
         puts in the miss radiance)."""
-        order = secondary_order(dirs, tmax) if sort_secondary else ray_order
+        order = (sort_rays_morton(p, dirs, lo, hi, active=tmax > 0,
+                                  dir_bits=sort_dir_bits)
+                 if sort_secondary else ray_order)
         if trace_fused is not None:
             def shade(rec, nrm, o_s, d_s):
-                if no_shade:          # ablation (profiling only)
-                    return torch.zeros_like(o_s), None
                 return _shade_secondary(consts, mats, env, sh_coeffs, rec,
                                         d_s, damp_diffuse_albedo,
-                                        fused_n=nrm, ray_o=o_s,
-                                        miss_lod=miss_lod,
-                                        dbg_env_mode=env_mode)
+                                        fused_n=nrm, ray_o=o_s)
 
-            return _trace_shade_ordered_fused(trace_fused, shade, env, p,
-                                              dirs, T_MIN_SECONDARY, tmax,
-                                              order, miss_lod)
+            return _trace_shade_ordered_fused(trace_fused, shade, p, dirs,
+                                              T_MIN_SECONDARY, tmax, order)
         rec = _trace_ordered(trace_fn, tlas, p, dirs, T_MIN_SECONDARY, tmax,
                              order)
         shaded, _ = _shade_secondary(consts, mats, env, sh_coeffs, rec,
@@ -489,22 +455,16 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
 
     # ---------------- reflection wave (computeReflection, depth 0) -------
     h, nol, trace_dir, tmax_r = reflection_rays(surf, xi)
-    if dbg_no_refl_trace:       # ablation: kill the wave (profiling only)
-        tmax_r = torch.full_like(tmax_r, -1.0)
-    radiance_r, hit_r = wave(trace_dir, tmax_r, False, dbg_miss_lod,
-                             dbg_env_mode, dbg_no_secondary_shade)
+    radiance_r, hit_r = wave(trace_dir, tmax_r, False)
     if trace_fused is not None:
         radiance_r = torch.where(seed_dead & hit_r[..., None], seed,
                                  radiance_r)
         sky_env = radiance_r
     else:
         shaded_r = torch.where(seed_dead, seed, radiance_r)
-        env_r = sample_env(env, trace_dir, dbg_miss_lod)
+        sky_env = sample_env(env, trace_dir, 0.0)
         radiance_r = torch.where(hit_r[..., None] & hit[..., None], shaded_r,
-                                 env_r)
-        # a sky pixel's diffuse radiance: env(-V) at LOD 0 on this route
-        sky_env = (env_r if dbg_miss_lod == 0.0
-                   else sample_env(env, trace_dir, 0.0))
+                                 sky_env)
 
     # primary BRDF weight (RayTracing.hlsl:461-478)
     f0 = 0.04 * (1.0 - metal[..., None]) + color * metal[..., None]

@@ -36,8 +36,7 @@ def cpu_bench(monkeypatch):
     monkeypatch.setenv("RTGGX_BENCH_DEVICE", "cpu")
     monkeypatch.setenv("RTGGX_BENCH_RES", "32x18")
     monkeypatch.setenv("RTGGX_BENCH_FRAMES", "2")
-    for k in ("RTGGX_BENCH_TRAVERSAL", "RTGGX_BENCH_ANCHOR",
-              "RTGGX_BENCH_CONFIG"):
+    for k in ("RTGGX_BENCH_TRAVERSAL", "RTGGX_BENCH_CONFIG"):
         monkeypatch.delenv(k, raising=False)
 
 

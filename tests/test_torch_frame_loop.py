@@ -146,7 +146,7 @@ class _Syncs(TorchDispatchMode):
 
 @pytest.mark.parametrize("cfg", [
     dict(traversal="wide"),
-    dict(traversal="wide", trace_slim=True, sort_anchor=8,
+    dict(traversal="wide", trace_slim=True, sort_dir_bits=6,
          emulate_formats=True, kernels="xla"),
     dict(traversal="pallas4", bary_mode="ndc"),
     dict(traversal="pallas"),

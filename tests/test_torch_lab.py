@@ -248,7 +248,7 @@ def test_lbvh_builder_equals_reference():
     blas = tuple(j_build_lbvh(m.positions, m.tri.reshape(-1))
                  for m in meshes)
     ref = j_build(JGeometry(meshes=meshes, blas=blas), js.mesh_ids,
-                  leaf_size=4, builder="lbvh", anchor_cut=0)
+                  leaf_size=4, builder="lbvh")
     got = build_scene_wide(upload_scene(ts), ts.mesh_ids, leaf_size=4,
                            builder="lbvh")
     sah = build_scene_wide(upload_scene(ts), ts.mesh_ids, leaf_size=4)
