@@ -8,8 +8,8 @@ Phases (each prints its own lines; any failure ends the run non-zero):
  1. build the CUDA kernels from csrc/ (one nvcc per source, sm_90a) and
     load them; print ptxas's registers, stack frame and spills of every
     kernel, and fail if one of K1's 3 instances (lean, slim K1s, fat K1f),
-    K1e, K4, K5, K7 or an instance of K6a, K6b, XF or TS has a stack frame
-    or spills;
+    K1e, K4, K5, K7 or an instance of K6a, K6b, XF, TS or BS has a stack
+    frame or spills;
  2. the scene: ground cube + a deterministic ~82k-triangle displaced
     icosphere standing in for the bunny; its instanced scene BVH (the
     renderer's leaf size, 8) for traversal="wide" and its per-mesh trees
@@ -33,7 +33,10 @@ Phases (each prints its own lines; any failure ends the run non-zero):
     per-instance transforms, in its three forms on 921,600 rays against
     its plain version (take_small + einsum) and the einsum alone; TS, the
     TAA, bit for bit its plain version at 1280x720, 3840x2160, 67x37 and
-    on a band, timed beside it at the two frame sizes;
+    on a band, timed beside it at the two frame sizes; BS, the bounce
+    waves' shading, bit for bit its plain version on the frame's sorted
+    waves at 1280x720 and over 8 instances at 3840x2160, metallic 1 and
+    0.5, timed beside it on each size's reflection wave;
  4. the paths at 1280x720, each with every launch count set to 0 just
     before it and read just after: "wide" (3 warm-up, 60 timed frames, then
     10 at metallic 0.5), then "pallas4" and "pallas" (3 warm-up, 20 timed,
@@ -125,7 +128,7 @@ KNOB_TIMED, KNOB_METAL = 20, 5      # the knob paths' frames, per path
 FAT_REPS = 10                       # K1f's API path: passes over both waves
 # the launch counters, in the order of every per-frame list below
 COUNTED = ("K1", "K1s", "K1f", "K1e", "K2", "K3", "K4", "K5", "XF",
-           "TS")
+           "TS", "BS")
 F32_EPS = 2.0 ** -23
 K1_RAYS = 16384
 K1_LEAVES = (8, 64)     # the renderer's leaf size (checked), and the old one
@@ -213,7 +216,8 @@ def build_kernels():
                       ("K6a", "lab_kernel", 6), ("K6b", "ls_kernel", 2),
                       ("K7", "mxu_kernel", 1),
                       ("XF", "instance_xform_kernel", 3),
-                      ("TS", "temporal_ss_kernel", 2)):
+                      ("TS", "temporal_ss_kernel", 2),
+                      ("BS", "bounce_shade_kernel", 1)):
         rows = [r for name, r in reports.items() if key in name]
         check(len(rows) == n and all(r[1:] == (0, 0, 0) for r in rows),
               f"{k}: {n} instance(s), no stack frame and no spills")
@@ -786,6 +790,80 @@ def ts_check(rng, device, reps=20):
     return dict(rows["720p"], **{"4k": rows["4k"]})
 
 
+def bs_check(renderer, dev, reps=20):
+    """BS against its plain version (ops/shade_cuda.py:shade_bounce_plain)
+    on the card, bit for bit, on the frame's sorted bounce waves as K1
+    hands them over: the model scene at 1280x720 (``renderer``) and over 8
+    instances at 3840x2160 (the 4K cell's layout), each at metallic 1 and
+    0.5 (the reflection wave, then the damped diffuse wave too).  Times
+    the kernel and the plain version on each size's reflection wave;
+    bound: 65 B a ray (origin, direction, t, id, hit flag and normal read,
+    the (R, 4) row written; the env rows from L2).  Returns the 1280x720
+    row dict(max_abs_err, ms, plain_ms, bound_ms, bound_by) and the 4K
+    row's under "4k"."""
+    import raytracedggx_tpu_torch.trace.raygen as raygen
+    from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
+    from raytracedggx_tpu_torch.ops import shade_cuda
+    from raytracedggx_tpu_torch.scene import Scene
+
+    scene = renderer.scene
+    extra = tuple((2.5 * (i % 3) - 2.5, 0.0, 2.5 * (i // 3) - 2.5, 0.6)
+                  for i in range(1, 7))
+    r4k = Renderer(Scene(meshes=scene.meshes, materials=scene.materials,
+                         pos_scale=scene.pos_scale, extra_instances=extra),
+                   config=RenderConfig(width=3840, height=2160), device=dev)
+    calls, real = [], raygen.shade_bounce
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+    rows = {}
+    raygen.shade_bounce = spy
+    try:
+        for label, r in (("720p", renderer), ("4k", r4k)):
+            for metallic in (1.0, 0.5):
+                for mesh_idx in (0, 1):
+                    r.set_metallic(mesh_idx, metallic)
+                calls.clear()
+                n0 = shade_cuda.shade_bounce.launches
+                r.step(r.init_state())
+                torch.cuda.synchronize()
+                want = 2 if metallic < 1.0 else 1
+                check(len(calls) == want
+                      and shade_cuda.shade_bounce.launches == n0 + want,
+                      f"BS {label} metallic {metallic:g}: {want} launch(es)")
+                for args in calls:
+                    got = shade_cuda.shade_bounce(*args)
+                    ref = shade_cuda.shade_bounce_plain(*args)
+                    n = ts_differ(got, ref)
+                    rec = args[4]
+                    check(n == 0, f"BS {label} metallic {metallic:g} "
+                          f"{'diffuse' if args[-1] else 'reflection'} wave: "
+                          f"{got.shape[0]} rays ({int(rec.hit.sum())} hits) "
+                          f"bit for bit the plain version ({n} values "
+                          f"differ)")
+                if metallic == 1.0:
+                    args = calls[0]
+                    ms, plain_ms = time_pair(
+                        f"BS {label} reflection wave",
+                        lambda: shade_cuda.shade_bounce(*args),
+                        lambda: shade_cuda.shade_bounce_plain(*args),
+                        kern_reps=reps, plain_reps=3)
+                    n_rays = args[6].shape[0]
+                    bound_ms, bound_by = bound(n_rays * 65, n_rays * 300)
+                    print(f"    bound {bound_ms:.6f} ms ({bound_by}), kernel "
+                          f"at {100 * bound_ms / ms:.1f}% of it")
+                    rows[label] = dict(max_abs_err=0.0, ms=ms,
+                                       plain_ms=plain_ms, bound_ms=bound_ms,
+                                       bound_by=bound_by)
+    finally:
+        raygen.shade_bounce = real
+    for mesh_idx in (0, 1):
+        renderer.set_metallic(mesh_idx, 1.0)
+    del r4k
+    return dict(rows["720p"], **{"4k": rows["4k"]})
+
+
 # ---------------------------------------------------------------- phase 4
 def zero_counts():
     from raytracedggx_tpu_torch.engine.renderer import launch_counters
@@ -880,14 +958,14 @@ def kernels_switch_check(scene, dev, card, frames=3):
     f = frame.float()
     check(bool(torch.isfinite(f).all()) and float(f.std()) > 1e-3,
           "kernels='xla': frame finite and not constant")
-    want = [2, 0, 0, 0, 0, 0, 0, 0, 6, 1]
+    want = [2, 0, 0, 0, 0, 0, 0, 0, 4, 1, 1]
     check(counts == [n * frames for n in want], f"kernels='xla': launches "
           f"{'/'.join(COUNTED)} {counts} = {want} per frame")
     r.set_kernels("auto")
     zero_counts()
     r.step(state)
     counts = read_counts()
-    want = [2, 0, 0, 0, 2, 0, 0, 0, 6, 1]
+    want = [2, 0, 0, 0, 2, 0, 0, 0, 4, 1, 1]
     check(counts == want, f"set_kernels('auto'): launches "
           f"{'/'.join(COUNTED)} {counts} = {want} in the next frame")
 
@@ -905,14 +983,14 @@ def knob_paths(scene, dev, card, width=W, height=H):
 
     size = dict(width=width, height=height)
     paths = {  # config, launches per frame, and at metallic 0.5
-        "default": (RenderConfig(**size), [2, 0, 0, 0, 2, 0, 0, 0, 6, 1],
-                    [3, 0, 0, 0, 2, 2, 0, 0, 8, 1]),
+        "default": (RenderConfig(**size), [2, 0, 0, 0, 2, 0, 0, 0, 4, 1, 1],
+                    [3, 0, 0, 0, 2, 2, 0, 0, 4, 1, 2]),
         "trace_slim": (RenderConfig(trace_slim=True, **size),
-                       [0, 2, 0, 2, 2, 0, 0, 0, 6, 1],
-                       [0, 3, 0, 3, 2, 2, 0, 0, 8, 1]),
+                       [0, 2, 0, 2, 2, 0, 0, 0, 4, 1, 1],
+                       [0, 3, 0, 3, 2, 2, 0, 0, 4, 1, 2]),
         "sort_dir_bits": (RenderConfig(sort_dir_bits=6, **size),
-                          [2, 0, 0, 0, 2, 0, 0, 0, 6, 1],
-                          [3, 0, 0, 0, 2, 2, 0, 0, 8, 1]),
+                          [2, 0, 0, 0, 2, 0, 0, 0, 4, 1, 1],
+                          [3, 0, 0, 0, 2, 2, 0, 0, 4, 1, 2]),
     }
     rs, states, frames, ms = {}, {}, {}, {}
     launches = {k: [0] * len(COUNTED) for k in paths}
@@ -999,7 +1077,7 @@ def fat_path_check(renderer, worlds, waves):
         outs = [trace_scene_wide_fused(sw_f, *w) for w in waves]
     torch.cuda.synchronize()
     counts = read_counts()
-    want = [0, 0, 2 * FAT_REPS, 0, 0, 0, 0, 0, 0, 0]
+    want = [0, 0, 2 * FAT_REPS, 0, 0, 0, 0, 0, 0, 0, 0]
     check(counts == want, f"K1f API path: launches {'/'.join(COUNTED)} "
           f"{counts} = {want} over {FAT_REPS} passes of both waves")
     for label, w, (rec, nrm) in zip(("primary", "reflection"), waves, outs):
@@ -1304,10 +1382,13 @@ def capture_check(r, label, per_frame, per_frame_metal, frames=3,
                          if "instance_xform_kernel" in name)
         seen["TS"] = sum(1 for name, _, _ in events
                          if "temporal_ss_kernel" in name)
+        seen["BS"] = sum(1 for name, _, _ in events
+                         if "bounce_shade_kernel" in name)
         by = dict(zip(COUNTED, got))
         expect = {"K1": by["K1"] + by["K1s"] + by["K1f"], "K1e": by["K1e"],
                   "K2": by["K2"], "K3": by["K3"], "K4": by["K4"],
-                  "K5": by["K5"], "XF": by["XF"], "TS": by["TS"]}
+                  "K5": by["K5"], "XF": by["XF"], "TS": by["TS"],
+                  "BS": by["BS"]}
         expect = {k: v * replays for k, v in expect.items()}
         print(f"  {label} metallic {metallic:g}: {replays} replays under "
               f"torch.profiler, kernels by name {seen}")
@@ -1480,17 +1561,17 @@ def frame_loop(renderer, per_mesh, dev, card):
     from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
 
     t0 = time.perf_counter()
-    capture_check(renderer, "wide", [2, 0, 0, 0, 2, 0, 0, 0, 6, 1],
-                  [3, 0, 0, 0, 2, 2, 0, 0, 8, 1])
+    capture_check(renderer, "wide", [2, 0, 0, 0, 2, 0, 0, 0, 4, 1, 1],
+                  [3, 0, 0, 0, 2, 2, 0, 0, 4, 1, 2])
     slim = Renderer(renderer.scene, config=RenderConfig(trace_slim=True),
                     device=dev)
-    capture_check(slim, "wide trace_slim", [0, 2, 0, 2, 2, 0, 0, 0, 6, 1],
-                  [0, 3, 0, 3, 2, 2, 0, 0, 8, 1])
+    capture_check(slim, "wide trace_slim", [0, 2, 0, 2, 2, 0, 0, 0, 4, 1, 1],
+                  [0, 3, 0, 3, 2, 2, 0, 0, 4, 1, 2])
     del slim
-    capture_check(per_mesh["pallas4"], "pallas4", [0, 0, 0, 0, 2, 0, 0, 4, 5, 1],
-                  [0, 0, 0, 0, 2, 2, 0, 6, 6, 1])
-    capture_check(per_mesh["pallas"], "pallas", [0, 0, 0, 0, 2, 0, 4, 0, 5, 1],
-                  [0, 0, 0, 0, 2, 2, 6, 0, 6, 1])
+    capture_check(per_mesh["pallas4"], "pallas4", [0, 0, 0, 0, 2, 0, 0, 4, 5, 1, 0],
+                  [0, 0, 0, 0, 2, 2, 0, 6, 6, 1, 0])
+    capture_check(per_mesh["pallas"], "pallas", [0, 0, 0, 0, 2, 0, 4, 0, 5, 1, 0],
+                  [0, 0, 0, 0, 2, 2, 6, 0, 6, 1, 0])
     t1 = time.perf_counter()
     async_check(renderer)
     timing = {m: loop_timing(renderer, card, m) for m in (1.0, 0.5)}
@@ -1598,8 +1679,8 @@ def bands_check(scene, dev, card):
     check((bands.band, bands.halo) == (band, BAND_HALO),
           f"{BANDS} bands of {band} rows, halo {BAND_HALO}")
     launches = [0, 0, 0]
-    for metallic, want in ((1.0, [2, 0, 0, 0, 2, 0, 0, 0, 6, 1]),
-                           (0.5, [3, 0, 0, 0, 2, 2, 0, 0, 8, 1])):
+    for metallic, want in ((1.0, [2, 0, 0, 0, 2, 0, 0, 0, 4, 1, 1]),
+                           (0.5, [3, 0, 0, 0, 2, 2, 0, 0, 4, 1, 2])):
         for r in (single, bands):
             for mesh_idx in (0, 1):
                 r.set_metallic(mesh_idx, metallic)
@@ -1821,19 +1902,20 @@ def main():
     del rm, aux
     res["XF"] = xform_check(rng, dev)
     res["TS"] = ts_check(rng, dev)
+    res["BS"] = bs_check(renderer, dev)
 
     print("== phase 4: paths at 1280x720")
     runs = {"wide": drive_path(renderer, "wide", TIMED_FRAMES, METAL_FRAMES,
-                               [2, 0, 0, 0, 2, 0, 0, 0, 6, 1],
-                               [3, 0, 0, 0, 2, 2, 0, 0, 8, 1], card)}
+                               [2, 0, 0, 0, 2, 0, 0, 0, 4, 1, 1],
+                               [3, 0, 0, 0, 2, 2, 0, 0, 4, 1, 2], card)}
     runs["pallas4"] = drive_path(per_mesh["pallas4"], "pallas4",
                                  PER_MESH_TIMED, PER_MESH_METAL,
-                                 [0, 0, 0, 0, 2, 0, 0, 4, 5, 1],
-                                 [0, 0, 0, 0, 2, 2, 0, 6, 6, 1], card)
+                                 [0, 0, 0, 0, 2, 0, 0, 4, 5, 1, 0],
+                                 [0, 0, 0, 0, 2, 2, 0, 6, 6, 1, 0], card)
     runs["pallas"] = drive_path(per_mesh["pallas"], "pallas",
                                 PER_MESH_TIMED, PER_MESH_METAL,
-                                [0, 0, 0, 0, 2, 0, 4, 0, 5, 1],
-                                [0, 0, 0, 0, 2, 2, 6, 0, 6, 1], card)
+                                [0, 0, 0, 0, 2, 0, 4, 0, 5, 1, 0],
+                                [0, 0, 0, 0, 2, 2, 6, 0, 6, 1, 0], card)
     kernels_switch_check(scene, dev, card)
     knobs = knob_paths(scene, dev, card)
     fat_launches = fat_path_check(renderer, worlds_f, waves)
@@ -1895,6 +1977,10 @@ def main():
         ("TS temporal_ss", "csrc/temporal.cu",
          "raytracedggx_tpu/denoise/temporal.py:148",
          runs["wide"]["launches"][9]),
+        # no Pallas kernel: the JAX package leaves the shading to XLA
+        ("BS shade_bounce", "csrc/shade.cu",
+         "raytracedggx_tpu/trace/raygen.py:418",
+         runs["wide"]["launches"][10]),
     ]
     # K1-K3 also launch on the bench's configs (phase 8, counted in the
     # bench's process) and on the bands (phase 9): "launches" is the sum

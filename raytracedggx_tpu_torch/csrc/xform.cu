@@ -19,13 +19,16 @@
 // Per ray, one thread: the id is clamped to [0, R - 1], so a miss (-1)
 // reads row 0 as take_small does; y_d = sum_c x_c M[c][d] accumulated in
 // c order, plus the translation row M[C][d] where the call is affine (x
-// has C = K - 1 columns and its implicit w = 1 reads row K - 1).  No
+// has C = K - 1 columns and its implicit w = 1 reads row K - 1): the
+// product of xform.cuh, which BS (shade.cu) shares.  No
 // reduction runs across rays: a ray's result depends on nothing but its
 // own inputs, so row bands equal the full frame bit for bit.  Inputs may
 // be strided views (the un-permuted rows of a wave); the output is a
 // contiguous (N, D) float32 tensor.  No fast math.
 
 #include <cuda_runtime.h>
+
+#include "xform.cuh"
 
 namespace {
 
@@ -55,19 +58,11 @@ instance_xform_kernel(const float* __restrict__ table, int rows,
       ? static_cast<const long long*>(inst)[i * inst_stride]
       : static_cast<long long>(static_cast<const int*>(inst)[i * inst_stride]);
   id = id < 0 ? 0 : (id >= rows ? rows - 1 : id);
-  const float* m = tab + id * (K * D);
   float xv[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) xv[c] = x[i * x_row + c * x_col];
   float y[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    float acc = xv[0] * m[d];
-#pragma unroll
-    for (int c = 1; c < C; ++c) acc += xv[c] * m[c * D + d];
-    if (AFFINE) acc += m[C * D + d];
-    y[d] = acc;
-  }
+  xform_row<C, D, AFFINE>(tab + id * (K * D), xv, y);
 #pragma unroll
   for (int d = 0; d < D; ++d) out[static_cast<long long>(i) * D + d] = y[d];
 }

@@ -79,6 +79,7 @@ from ..ops.fused import slim_uv, trace_tiles_instanced
 from ..ops.ordering import make_block_order
 from ..ops.scene_wide import (build_scene_wide, inverse_rows,
                               refit_scene_wide, trace_scene_wide_fused)
+from ..ops.shade_cuda import shade_bounce
 from ..ops.spatial_cuda import diffuse_pass, reflection_pass
 from ..ops.temporal_cuda import temporal_ss
 from ..ops.traverse_cuda import trace_scene_flat, trace_tiles_flat
@@ -222,7 +223,7 @@ def launch_counters():
     """(kernel, wrapper, attribute) of each kernel wrapper's launch
     counter: K1's lean, slim (K1s) and fat (K1f) modes, K1s's epilogue
     K1e, then K2, K3, K4, K5, XF, the waves' per-instance transforms,
-    and TS, the TAA."""
+    TS, the TAA, and BS, the bounce waves' shading on K1's route."""
     k1 = trace_tiles_instanced
     return (("K1", k1, "launches"), ("K1s", k1, "launches_slim"),
             ("K1f", k1, "launches_fat"), ("K1e", slim_uv, "launches"),
@@ -231,7 +232,8 @@ def launch_counters():
             ("K4", trace_tiles_flat, "launches"),
             ("K5", trace_tiles4, "launches"),
             ("XF", instance_xform, "launches"),
-            ("TS", temporal_ss, "launches"))
+            ("TS", temporal_ss, "launches"),
+            ("BS", shade_bounce, "launches"))
 
 
 def launch_counts() -> dict:

@@ -75,12 +75,22 @@ SIGNATURES = {
     # row0 out stream
     "rtggx_temporal_ss": (_P, _L, _L, _L, _P, _L, _L, _L, _I, _P, _L, _L,
                           _L, _I, _I, _F, _F, _I, _P, _P),
+    # BS: inv n_inv s0 s1 s2, wit n_wit s0 s1 s2, rm n_rm s0 s1, bc n_bc
+    # s0 s1, sh s0 s1, tri tri_rows sizes offsets num_mips, o s0 s1, d s0
+    # s1, t s, inst s inst64, hit s, nrm s0 s1, damp n out stream
+    "rtggx_shade_bounce": (_P, _I, _L, _L, _L, _P, _I, _L, _L, _L,
+                           _P, _I, _L, _L, _P, _I, _L, _L, _P, _L, _L,
+                           _P, _L, _P, _P, _I, _P, _L, _L, _P, _L, _L,
+                           _P, _L, _P, _L, _I, _P, _L, _P, _L, _L,
+                           _I, _I, _P, _P),
     # stage mark (engine/spans.py): stage stream
     "rtggx_mark": (_I, _P),
     "rtggx_k1_max_stack": (),
     "rtggx_k4_max_stack": (),
     "rtggx_k5_max_stack": (),
     "rtggx_xform_max_rows": (),
+    "rtggx_shade_max_rows": (),
+    "rtggx_shade_max_mips": (),
 }
 
 

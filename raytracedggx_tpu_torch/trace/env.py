@@ -152,6 +152,13 @@ def _bilinear(env: EnvMap, mip: int, face, u, v):
     return _mix4(env.quad[idx], fx, fy)
 
 
+def mip_level(env: EnvMap, rough):
+    """calcCubemapMipFromRoughness (RayTracing.hlsl:416-422): the mip a
+    roughness samples, unclamped."""
+    level = 3.0 - 1.15 * torch.log2(torch.clamp(rough, min=1e-20))
+    return env.num_mips - 1.0 - level
+
+
 def sample_env(env: EnvMap, d, level=0.0):
     """SampleLevel(dir, level): trilinear clamp.  d (..., 3); level a
     python number or a (...,) tensor.  An integral python level skips

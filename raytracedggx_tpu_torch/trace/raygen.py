@@ -26,6 +26,10 @@ Dropped TPU workarounds that change no output:
   and a per-ray product by a per-instance matrix is one kernel that
   never gathers the matrix (``ops.xform_cuda.instance_xform``, XF; on
   the CPU the gather and ``einsum`` it replaces);
+- on K1's route a bounce wave's hit shading and miss tap are one kernel
+  that computes, one ray a thread, only the branch the ray takes
+  (``ops.shade_cuda.shade_bounce``, BS; on the CPU the whole-wave torch
+  expression it replaces, which computes both and selects);
 - the diffuse wave's runtime gate (``lax.cond`` on "any hit pixel with
   metallic < 1", raygen.py:769-777) is decided on the host from the
   materials (``diffuse``): a frame makes no host sync, so it can be
@@ -51,11 +55,12 @@ from typing import NamedTuple
 import torch
 
 from ..ops.ordering import BlockOrder, sort_rays_morton
+from ..ops.shade_cuda import shade_bounce
 from ..ops.xform_cuda import instance_xform
 from ..sh import evaluate_sh_irradiance
 from ..utils.math3d import const, reflect, saturate
 from .brdf import PI, env_brdf_approx, f_schlick, vis_smith
-from .env import EnvMap, sample_env
+from .env import EnvMap, mip_level, sample_env
 from .geometry import fetch_vertices, interp_attribs, interp_from_vertices
 from .sampling import cos_dir, ggx_dir, sample_param
 from .shade import get_base_color, get_rough_metal, get_uv, take_small
@@ -148,22 +153,19 @@ def _trace_ordered_fused(trace_fused, o, d, t_min, t_max, ray_order):
 def _trace_shade_ordered_fused(trace_fused, shade_fn, o, d, t_min, t_max,
                                ray_order):
     """Trace AND shade in the sorted ray domain (neighbouring rays tap
-    neighbouring env texels), un-permuting only the radiance.  The miss
-    radiance rides the shading's env tap.  Returns (radiance (R, 3),
-    secondary hit (R,)) in original ray order."""
-    def shade(rec, nrm, o, d):
-        shaded, env_tap = shade_fn(rec, nrm, o, d)
-        return torch.where(rec.hit[..., None], shaded, env_tap)
-
+    neighbouring env texels), un-permuting only the radiance.
+    shade_fn(rec, nrm, o, d) gives (R, 4) rows, radiance | hit flag, the
+    miss radiance included (``ops.shade_cuda.shade_bounce``).  Returns
+    (radiance (R, 3), secondary hit (R,)) in original ray order."""
     if ray_order is None:
         rec, nrm = trace_fused(o, d, t_min, t_max)
-        return shade(rec, nrm, o, d), rec.hit
-    perm, unperm = _order_fns(ray_order)
-    bundle = perm(torch.cat([o, d, per_ray(t_max, o)[:, None]], dim=-1))
-    o_s, d_s = bundle[:, 0:3], bundle[:, 3:6]
-    rec, nrm = trace_fused(o_s, d_s, t_min, bundle[:, 6])
-    rad = shade(rec, nrm, o_s, d_s)
-    out = unperm(torch.cat([rad, rec.hit[..., None].to(rad.dtype)], dim=-1))
+        out = shade_fn(rec, nrm, o, d)
+    else:
+        perm, unperm = _order_fns(ray_order)
+        bundle = perm(torch.cat([o, d, per_ray(t_max, o)[:, None]], dim=-1))
+        o_s, d_s = bundle[:, 0:3], bundle[:, 3:6]
+        rec, nrm = trace_fused(o_s, d_s, t_min, bundle[:, 6])
+        out = unperm(shade_fn(rec, nrm, o_s, d_s))
     return out[:, 0:3], out[:, 3] > 0.5
 
 
@@ -173,66 +175,40 @@ def world_to_object(consts: FrameConstants, inst, p_world):
     return instance_xform(consts.inv_worlds, inst, p_world, affine=True)
 
 
-def _mip_level(env: EnvMap, rough):
-    """calcCubemapMipFromRoughness (RayTracing.hlsl:416-422)."""
-    level = 3.0 - 1.15 * torch.log2(torch.clamp(rough, min=1e-20))
-    return env.num_mips - 1.0 - level
-
-
-def _spec_env_shade(env: EnvMap, n, v, rough, color, metal, miss_dir=None,
-                    hit=None):
-    """computeReflection at the recursion limit (RayTracing.hlsl:442-481).
-    With miss_dir the env tap serves double duty: hit lanes sample the
-    roughness-filtered spec direction, miss lanes miss_dir at LOD 0.
-    Returns (spec, env_tap), env_tap None without miss_dir."""
+def _spec_env_shade(env: EnvMap, n, v, rough, color, metal):
+    """computeReflection at the recursion limit (RayTracing.hlsl:442-481)."""
     a = rough * rough
     r = reflect(-v, n)
     k = ((1.0 - a) * (torch.sqrt(torch.clamp(1.0 - a, min=0.0)) + a))[..., None]
     d = n + (r - n) * k                      # lerp(N, R, k), unnormalized
     nol = torch.sum(n * d, dim=-1)
     nov = saturate(torch.sum(n * v, dim=-1))
-    env_tap = None
-    if miss_dir is None:
-        rad = sample_env(env, d, _mip_level(env, rough))
-    else:
-        tap_d = torch.where(hit[..., None], d, miss_dir)
-        tap_l = torch.where(hit, _mip_level(env, rough),
-                            torch.zeros_like(rough))
-        env_tap = rad = sample_env(env, tap_d, tap_l)
+    rad = sample_env(env, d, mip_level(env, rough))
     rad = torch.where((nol > 0.0)[..., None], rad, 0.0)
     f0 = 0.04 * (1.0 - metal[..., None]) + color * metal[..., None]
-    return rad * env_brdf_approx(f0, rough, nov), env_tap
+    return rad * env_brdf_approx(f0, rough, nov)
 
 
 def _shade_secondary(consts, mats, env, sh_coeffs, rec, ray_dir,
-                     damp_diffuse_albedo, fused_n=None, ray_o=None,
-                     geom=None, mesh_ids=None):
-    """Closest-hit shading of depth-1 rays (closestHitReflection /
-    closestHitDiffuse, RayTracing.hlsl:570-614): metallic > 0.5 takes the
-    env-specular route, else SH diffuse (albedo damped by 1 - metallic on
-    the diffuse wave).  fused_n: the OBJECT-space interpolated normal from
-    K1, the hit point on the ray, and the env tap doubles as the miss
-    radiance; without it the attributes come from the hit triangle's
-    vertices (geom, mesh_ids).  Returns (shaded, env_tap or None)."""
-    if fused_n is not None:
-        p_world = ray_o + rec.t[..., None] * ray_dir
-        pos_obj = world_to_object(consts, rec.inst, p_world)
-        nrm_obj = fused_n
-    else:
-        pos_obj, nrm_obj = interp_attribs(geom, mesh_ids, rec.inst,
-                                          rec.prim, rec.u, rec.v)
+                     damp_diffuse_albedo, geom, mesh_ids):
+    """Closest-hit shading of depth-1 rays on the per-mesh routes
+    (closestHitReflection / closestHitDiffuse, RayTracing.hlsl:570-614):
+    the attributes come from the hit triangle's vertices (geom, mesh_ids);
+    metallic > 0.5 takes the env-specular route, else SH diffuse (albedo
+    damped by 1 - metallic on the diffuse wave).  K1's route shades with
+    ``ops.shade_cuda.shade_bounce``."""
+    pos_obj, nrm_obj = interp_attribs(geom, mesh_ids, rec.inst, rec.prim,
+                                      rec.u, rec.v)
     n = _normalize(instance_xform(consts.world_its, rec.inst, nrm_obj))
     v = -ray_dir
     uv = get_uv(nrm_obj, pos_obj)
     rough, metal = get_rough_metal(mats.rough_metals, rec.inst, uv)
     color = get_base_color(mats.base_colors, rec.inst)[..., :3]
-    spec, env_tap = _spec_env_shade(
-        env, n, v, rough, color, metal,
-        miss_dir=ray_dir if fused_n is not None else None, hit=rec.hit)
+    spec = _spec_env_shade(env, n, v, rough, color, metal)
     albedo = color * (1.0 - metal[..., None]) if damp_diffuse_albedo \
         else color
     diff = evaluate_sh_irradiance(sh_coeffs, n) / PI * albedo
-    return torch.where((metal > 0.5)[..., None], spec, diff), env_tap
+    return torch.where((metal > 0.5)[..., None], spec, diff)
 
 
 def primary_rays(consts: FrameConstants, width: int, height: int,
@@ -435,17 +411,15 @@ def ray_trace_pass(tlas, consts: FrameConstants, mats: MaterialsDev,
                  if sort_secondary else ray_order)
         if trace_fused is not None:
             def shade(rec, nrm, o_s, d_s):
-                return _shade_secondary(consts, mats, env, sh_coeffs, rec,
-                                        d_s, damp_diffuse_albedo,
-                                        fused_n=nrm, ray_o=o_s)
+                return shade_bounce(consts, mats, env, sh_coeffs, rec, nrm,
+                                    o_s, d_s, damp_diffuse_albedo)
 
             return _trace_shade_ordered_fused(trace_fused, shade, p, dirs,
                                               T_MIN_SECONDARY, tmax, order)
         rec = _trace_ordered(trace_fn, tlas, p, dirs, T_MIN_SECONDARY, tmax,
                              order)
-        shaded, _ = _shade_secondary(consts, mats, env, sh_coeffs, rec,
-                                     dirs, damp_diffuse_albedo, geom=geom,
-                                     mesh_ids=tlas.mesh_ids)
+        shaded = _shade_secondary(consts, mats, env, sh_coeffs, rec, dirs,
+                                  damp_diffuse_albedo, geom, tlas.mesh_ids)
         return shaded, rec.hit
 
     # closestHitReflection early-out (:573): payload seeded with

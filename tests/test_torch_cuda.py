@@ -1,4 +1,4 @@
-"""The port's CUDA kernels (K1-K7, XF) against their plain torch
+"""The port's CUDA kernels (K1-K7, XF, TS, BS) against their plain torch
 versions on the card.  Every test here needs an NVIDIA GPU with nvcc and skips
 without one; this file imports neither jax nor the JAX package, so on a
 GPU machine without JAX it runs on its own:
@@ -728,25 +728,25 @@ def _same_frames(a, b):
 
 
 @pytest.mark.parametrize("cfg,per_frame", [
-    (dict(traversal="wide"), ("K1", 2, 3, 6, 8)),
-    (dict(traversal="wide", trace_slim=True), ("K1s", 2, 3, 6, 8)),
-    (dict(traversal="pallas4"), ("K5", 4, 6, 5, 6)),
-    (dict(traversal="pallas"), ("K4", 4, 6, 5, 6)),
+    (dict(traversal="wide"), ("K1", 2, 3, 4, 4, 1, 2)),
+    (dict(traversal="wide", trace_slim=True), ("K1s", 2, 3, 4, 4, 1, 2)),
+    (dict(traversal="pallas4"), ("K5", 4, 6, 5, 6, 0, 0)),
+    (dict(traversal="pallas"), ("K4", 4, 6, 5, 6, 0, 0)),
 ])
 def test_step_n_capture_equals_step_loop(cuda, cfg, per_frame):
     """step_n replays one captured frame; its frames and states equal a
     step loop's bit for bit, at metallic 1 and, across a set_metallic
     that opens the gates (a new capture), at 0.5; the captured frame's
     launches are the path's (K2 twice; K3 twice at metallic 0.5; XF four
-    times in the primary wave and in each bounce wave twice on K1's
-    route, once on the per-mesh routes; TS once a frame in the step loop
-    and once in the captured frame)."""
+    times in the primary wave, and on the per-mesh routes once in each
+    bounce wave; BS once in each bounce wave on K1's route; TS once a
+    frame in the step loop and once in the captured frame)."""
     from raytracedggx_tpu_torch.ops.temporal_cuda import temporal_ss
 
     r = _cube_renderer(cuda, **cfg)
     assert r.captures
     s_loop = s_chunk = r.init_state()
-    kernel, n1, n05, xf1, xf05 = per_frame
+    kernel, n1, n05, xf1, xf05, bs1, bs05 = per_frame
     for n, metallic in ((4, None), (3, 0.5)):
         if metallic is not None:
             r.set_metallic(0, metallic)
@@ -762,6 +762,7 @@ def test_step_n_capture_equals_step_loop(cuda, cfg, per_frame):
         assert got[kernel] == want and got["K2"] == 2, got
         assert got["K3"] == (2 if metallic else 0), got
         assert got["XF"] == (xf05 if metallic else xf1), got
+        assert got["BS"] == (bs05 if metallic else bs1), got
         assert got["TS"] == 1, got
 
 
@@ -846,8 +847,8 @@ def _bands_against_renderer(mesh, metallic, cuda):
         for dev in {torch.device(d) for d in mesh}:
             torch.cuda.synchronize(dev)
         n1 = launch_counts()
-        out.append((state, frame, {k: n1[k] - n0[k]
-                                   for k in ("K1", "K2", "K3", "XF", "TS")}))
+        out.append((state, frame, {k: n1[k] - n0[k] for k in
+                                   ("K1", "K2", "K3", "XF", "TS", "BS")}))
     (_, f1, c1), (s2, f2, c2) = out
     assert f2.shape == (128, 128, 3) and f2.device == cuda
     assert float((f1 - f2).abs().max()) < 5e-4
@@ -855,8 +856,9 @@ def _bands_against_renderer(mesh, metallic, cuda):
         b.shape == (32, 128, 4) and b.dtype == torch.float16
         and b.device == torch.device(d)
         for b, d in zip(s2.history, mesh))
-    want = {"K1": 2, "K2": 2, "K3": 0, "XF": 6, "TS": 1} \
-        if metallic == 1.0 else {"K1": 3, "K2": 2, "K3": 2, "XF": 8, "TS": 1}
+    want = {"K1": 2, "K2": 2, "K3": 0, "XF": 4, "TS": 1, "BS": 1} \
+        if metallic == 1.0 else {"K1": 3, "K2": 2, "K3": 2, "XF": 4, "TS": 1,
+                                 "BS": 2}
     assert c1 == {k: 3 * n for k, n in want.items()}
     assert c2 == {k: 4 * n for k, n in c1.items()}
 
@@ -865,8 +867,8 @@ def _bands_against_renderer(mesh, metallic, cuda):
 def test_bands_on_the_card_match_renderer(cuda, metallic):
     """4 row bands of 32 rows on one card (halo 32, the index-order route:
     96 rows) against the single-device frame at 128x128 over 3 frames:
-    within one f16 ulp, the history in 4 f16 bands, and K1, K2, XF and TS
-    (K3 at metallic 0.5) launched 4x per frame."""
+    within one f16 ulp, the history in 4 f16 bands, and K1, K2, XF, TS and
+    BS (K3 at metallic 0.5) launched 4x per frame."""
     _bands_against_renderer((cuda,) * 4, metallic, cuda)
 
 
@@ -1092,3 +1094,101 @@ def test_temporal_kernel_has_no_frame_or_spills(cuda):
     reports = cuda_lib.ptxas_reports(cuda_lib.build()[1])
     rows = [r for name, r in reports.items() if "temporal_ss_kernel" in name]
     assert len(rows) == 2 and all(r[1:] == (0, 0, 0) for r in rows), rows
+
+
+# BS: the bounce waves' shading (ops/shade_cuda.py, csrc/shade.cu)
+def _bs_waves(monkeypatch, cuda, hw, metallic):
+    """Every shade_bounce call of one eager frame of the cube scene over
+    8 instances (the 4K cell's layout of 6 extra copies) at ``hw``, with
+    mesh 0 (instance 0: the checkerboard) and mesh 1 at ``metallic``:
+    [(args, BS rows, plain rows)], the sorted waves as K1 hands them
+    over."""
+    import raytracedggx_tpu_torch.trace.raygen as raygen
+    from raytracedggx_tpu_torch.engine import RenderConfig, Renderer
+    from raytracedggx_tpu_torch.ops import shade_cuda
+
+    calls = []
+
+    def spy(*args):
+        out = shade_cuda.shade_bounce(*args)
+        calls.append((args, out, shade_cuda.shade_bounce_plain(*args)))
+        return out
+    monkeypatch.setattr(raygen, "shade_bounce", spy)
+    extra = tuple((2.5 * (i % 3) - 2.5, 0.0, 2.5 * (i // 3) - 2.5, 0.6)
+                  for i in range(1, 7))
+    scene = Scene(meshes=[ground_cube(), ground_cube()],
+                  materials=default_materials(),
+                  pos_scale=np.array([0.0, 3.0, 0.0, 1.0], np.float32),
+                  extra_instances=extra)
+    r = Renderer(scene, config=RenderConfig(width=hw[1], height=hw[0]),
+                 device=cuda)
+    for mesh_idx, m in enumerate(metallic):
+        r.set_metallic(mesh_idx, m)
+    r.step(r.init_state(), 1 / 30)
+    torch.cuda.synchronize()
+    return calls
+
+
+@pytest.mark.parametrize("metallic", [(1.0, 1.0), (0.5, 1.0)])
+@pytest.mark.parametrize("hw", [(720, 1280), (2160, 3840)])
+def test_shade_kernel_matches_plain_on_the_waves(monkeypatch, cuda, hw,
+                                                 metallic):
+    """BS against its plain version on a frame's sorted bounce waves over
+    8 instances, at 1280x720 and 3840x2160: the reflection wave and, with
+    the ground at metallic 0.5, the damped diffuse wave; bit for bit, one
+    launch a wave, hits, misses and dead rays among the rays."""
+    from raytracedggx_tpu_torch.ops import shade_cuda
+
+    n0 = shade_cuda.shade_bounce.launches
+    calls = _bs_waves(monkeypatch, cuda, hw, metallic)
+    assert [a[-1] for a, _, _ in calls] == (
+        [False, True] if min(metallic) < 1.0 else [False])
+    assert shade_cuda.shade_bounce.launches == n0 + len(calls)
+    for args, got, ref in calls:
+        rec = args[4]
+        assert got.shape == (hw[0] * hw[1], 4) and got.is_contiguous()
+        assert bool(rec.hit.any()) and bool((rec.inst == -1).any())
+        _ts_same(got, ref)
+
+
+def test_shade_wrapper_refuses_bad_inputs(monkeypatch, cuda):
+    """A CUDA wave never falls back to the plain version: a table or the
+    env on another device, another dtype or shape raises before any
+    launch; the wrapper's row and mip limits are the kernel's."""
+    from raytracedggx_tpu_torch.ops import cuda_lib, shade_cuda
+
+    args = _bs_waves(monkeypatch, cuda, (54, 96), (1.0, 1.0))[0][0]
+    consts, mats, env, sh, rec, nrm, o, d, _ = args
+    bad = [
+        (consts._replace(inv_worlds=consts.inv_worlds.cpu()), mats, env, sh,
+         rec, nrm, o, d),
+        (consts, mats, env._replace(tri=env.tri.cpu()), sh, rec, nrm, o, d),
+        (consts, mats, env, sh.cpu(), rec, nrm, o, d),
+        (consts, mats, env, sh, rec._replace(t=rec.t.double()), nrm, o, d),
+        (consts, mats, env, sh, rec._replace(hit=rec.hit.int()), nrm, o, d),
+        (consts, mats, env, sh, rec, nrm.half(), o, d),
+        (consts, mats, env, sh, rec, nrm[:-1], o, d),
+        (consts, mats, env, sh, rec, nrm, o[:, :2], d),
+        (consts, mats, env._replace(tri=env.tri[:, :12]), sh, rec, nrm, o,
+         d),
+        (consts, mats._replace(rough_metals=mats.rough_metals[:0]), env, sh,
+         rec, nrm, o, d),
+    ]
+    n0 = shade_cuda.shade_bounce.launches
+    for a in bad:
+        with pytest.raises(ValueError):
+            shade_cuda.shade_bounce(*a, False)
+    assert shade_cuda.shade_bounce.launches == n0
+    lib = cuda_lib.load_library()
+    assert (lib.rtggx_shade_max_rows(), lib.rtggx_shade_max_mips()) == (
+        shade_cuda.MAX_ROWS, shade_cuda.MAX_MIPS)
+
+
+def test_shade_kernel_has_no_frame_or_spills(cuda):
+    """ptxas gives BS no stack frame and no spills."""
+    from raytracedggx_tpu_torch.ops import cuda_lib
+
+    reports = cuda_lib.ptxas_reports(cuda_lib.build()[1])
+    rows = [r for name, r in reports.items()
+            if "bounce_shade_kernel" in name]
+    assert len(rows) == 1 and all(r[1:] == (0, 0, 0) for r in rows), rows
