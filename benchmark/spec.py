@@ -54,8 +54,9 @@ TRAFFIC_KEYS = {
 }
 CHIPS = (1,)                        # step_n renders on one card
 # the numbers the comparison makes (judge.py): every cell's limits give
-# the first two, and tile_mae is compared where its limits give it
-NUMBERS = ("frame_mae", "history_rel", "tile_mae")
+# the first two, and tile_mae and tile16_mae are compared where its
+# limits give them
+NUMBERS = ("frame_mae", "history_rel", "tile_mae", "tile16_mae")
 
 
 class Refused(Exception):

@@ -6,6 +6,7 @@ run is driven as ``run.py`` drives it, on the CPU."""
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,7 +15,7 @@ import judge
 import run
 import spec
 from conftest import with_extra
-from harness import Draw, set_up
+from harness import Draw, Kept, set_up
 from raytracedggx_tpu_torch.engine import Renderer
 
 CPU = torch.device("cpu")
@@ -137,3 +138,54 @@ def test_extra_instances_built_elsewhere_are_refused(tiny_cell):
     with pytest.raises(spec.Refused, match="extra_instances"):
         set_up(cell.config, cell.traffic, Draw.of(SEEDS[0]), CPU, 0.0,
                renderer_cls=BuiltElsewhere)
+
+
+# tile16_mae over many small instances at the 1280x720 of the deployment
+# they stand for (some 2,000 copies of the model at scale 0.2, each some
+# 100-140 pixels: a part of one of tile_mae's 80 x 80-pixel tiles): 100
+# scattered on the ground, and the last one in view, which covers 102
+MANY = [[float(x), 0.2, float(z), 0.2] for x, z in
+        np.random.default_rng(24).uniform(-7.6, 7.6, (100, 2))]
+LAST = [2.0, 0.2, 6.5, 0.2]
+# tile16_mae's limit, from the card's readings of the port at 1280x720
+# over 256 instances (the bunny and 254 extra at scale 0.2; PERF.md),
+# window frames: sound runs 8.1e-4 to 1.55e-3 (4 seeds), the last instance
+# moved by its radius 7.97e-3 to 1.65e-2 (2 seeds)
+TILE16_LIMIT = 4e-3
+
+
+def test_one_small_instance_of_many_drawn_wrong_is_caught_by_tile16_mae():
+    """The program's place is taken by the plain reference drawing the last
+    instance its radius (0.2) further along x: the port's CPU routes take
+    minutes a frame over tens of instances.  The kept frames are a run's:
+    the two start frames from a zero history and a window frame from the
+    faulty history, judged as run.run judges them.  CPU readings (seed
+    11): tile16_mae 2.49e-2 on the window frame (7.19e-2 on the start
+    frames, which it does not judge); frame_mae 5.53e-5 and tile_mae
+    3.99e-3, under the limits the cells give them (1.2e-3, and the 4K
+    cell's 7e-3)."""
+    from reference.frame import ReferenceRenderer
+    from standin import model_arrays
+
+    draw, dt = Draw.of(SEEDS[0]), 1 / 60
+    arrays = model_arrays(3, draw.phases)
+
+    def reference(extra):
+        return ReferenceRenderer(arrays, (0.0, 1.0, 0.0, 1.0), 1280, 720,
+                                 metallic={0: 1.0, 1: 1.0},
+                                 extra_instances=tuple(map(tuple, extra)))
+
+    x, y, z, s = LAST
+    program = reference(MANY + [[x + s, y, z, s]])
+    state, kept = program.start_state(draw.angle0, draw.frame0), []
+    for done in range(3):
+        before = state.history
+        state, frame = program.step(state, dt)
+        kept.append(Kept(done=done, before=before if done == 2 else None,
+                         history=state.history, frame=frame))
+    numbers, _ = judge.compare(kept, judge.reference_outputs(
+        reference(MANY + [LAST]), kept, draw, dt))
+    cells = dict(spec.find_cell("bunny-720p.anim-m1").limits, tile_mae=7e-3)
+    assert judge.verdict(numbers, cells), numbers
+    assert not judge.verdict(numbers, dict(cells, tile16_mae=TILE16_LIMIT))
+    assert numbers["tile16_mae"] > 4 * TILE16_LIMIT

@@ -47,7 +47,7 @@ def test_benchmark_json_keeps_to_the_contract():
         assert (BENCH / "traffic" / f"{w['traffic']}.json").exists()
         limits = json.loads((BENCH / "limits" / f"{w['name']}.json")
                             .read_text())
-        assert set(limits) == {"frame_mae", "history_rel"}
+        assert set(spec.NUMBERS[:2]) <= set(limits) <= set(spec.NUMBERS)
     for m in b["end_to_end"] + b["per_layer"]:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"])
         assert m["better"] in ("lower", "higher")
@@ -131,6 +131,56 @@ def test_tile_mae_reads_the_worst_tile_and_counts_where_limited():
     limits = {"frame_mae": 1e-2, "history_rel": 1e-2}
     assert judge.verdict(g, limits)
     assert not judge.verdict(g, dict(limits, tile_mae=0.1))
+
+
+def test_tile16_mae_reads_the_worst_16_pixel_tile():
+    """At 1280x720 one small instance's worth of gap (10 x 10 pixels,
+    inside one 16 x 16 tile) reads whole in tile16_mae and diluted 25
+    times in tile_mae's 80 x 80 tiles; tiles that 16 does not divide
+    average their own pixels."""
+    import judge
+
+    ref = torch.rand(720, 1280, 3)
+    frame = ref.clone()
+    frame[324:334, 644:654] += 0.5
+    hist = torch.rand(720, 1280, 4).half()
+    g = judge.gaps(frame, hist, ref, hist.clone())
+    assert g["tile16_mae"] == pytest.approx(0.5 * 100 / 256)
+    assert g["tile_mae"] == pytest.approx(0.5 * 100 / 6400)
+    assert g["tile16_mae"] == pytest.approx(25 * g["tile_mae"])
+    small = torch.rand(36, 64, 3)
+    edge = small.clone()
+    edge[35, 63] += 0.5                         # a 4 x 16 edge tile
+    g = judge.gaps(edge, hist[:36, :64], small, hist[:36, :64].clone())
+    assert g["tile16_mae"] == pytest.approx(0.5 / 64)
+    limits = {"frame_mae": 1e-2, "history_rel": 1e-2}
+    assert judge.verdict(g, limits)
+    assert not judge.verdict(g, dict(limits, tile16_mae=1e-3))
+
+
+def test_tile16_mae_is_read_on_the_window_frames_only():
+    """A start frame (no history of the program's before it) gives no
+    tile16_mae and is judged without it; the worst is the window
+    frames'."""
+    import judge
+    from harness import Kept
+
+    ref, hist = torch.rand(36, 64, 3), torch.rand(36, 64, 4).half()
+    start, late = ref.clone(), ref.clone()
+    start[0:16, 0:16] += 0.5
+    late[0:16, 0:16] += 0.1
+    kept = [Kept(done=0, before=None, history=hist, frame=start),
+            Kept(done=5, before=hist, history=hist, frame=late)]
+    worst, each = judge.compare(kept, [(hist.clone(), ref)] * 2)
+    assert "tile16_mae" not in each[0]
+    assert worst["tile16_mae"] == pytest.approx(0.1, rel=1e-5)
+    assert each[1]["tile16_mae"] == pytest.approx(0.1, rel=1e-5)
+    assert worst["tile_mae"] == pytest.approx(each[0]["tile_mae"])
+    limits = {"frame_mae": 1.0, "history_rel": 1.0, "tile16_mae": 0.2}
+    assert all(judge.verdict(g, limits) for g in each)
+    assert not judge.verdict(each[1], dict(limits, tile16_mae=0.05))
+    with pytest.raises(KeyError):
+        judge.verdict(each[0], dict(limits, tile_mae=1.0, other=1.0))
 
 
 def test_nothing_reads_out_of_an_empty_trace():
